@@ -5,22 +5,41 @@
 
 1. Requires CUDA and prints the card's name and power limit.
 2. Builds the CUDA kernels from ``src/repro_torch/csrc`` (timed).
-3. Captures every kernel's operands from one stripe of the full-width
-   ``dlrm-paper`` data path, holds each kernel bit-exact (``torch.equal``)
-   against its plain PyTorch version on the card, and times kernel, plain
-   version and, where one exists, the single PyTorch call computing the
-   same function (device time from torch.profiler, call time from CUDA
-   events).  Then holds each kernel bit-exact on adversarial inputs the
-   main path never makes (NaN payloads, signed zeros, subnormals, extreme
-   parameters, both tile layouts, long bitmaps, every byte shift).
-4. Serves every batch of the full-width ``dlrm-paper`` DPP session through
-   ``dlrm_dpp_batches(device="cuda")`` with the launch counts set to 0 just
-   before, checks that every kernel launched, that the batches have the
-   expected shapes and finite dense values, and that they are
-   byte-identical (as a multiset: workers race) to the port's numpy-engine
-   session on the same data; prints batches/s and rows/s.
-5. Prints one JSON line with every kernel's numbers, the card's line, and
+3. Captures the data path's kernel operands from one stripe of the
+   full-width ``dlrm-paper`` data path, holds each kernel bit-exact
+   (``torch.equal``) against its plain PyTorch version on the card, and
+   times kernel, plain version and, where one exists, the single PyTorch
+   call computing the same function (device time from torch.profiler,
+   call time from CUDA events).  Then holds each kernel bit-exact on
+   adversarial inputs the main path never makes (NaN payloads, signed
+   zeros, subnormals, extreme parameters, both tile layouts, long bitmaps,
+   every byte shift; for ``embedding_bag`` empty bags, duplicate ids, the
+   last row, fractional weights, odd L and E, NaN/inf rows under a mask of
+   0, subnormal rows, a table of more than 2^31 elements).
+4. The serving path: serves every batch of the full-width ``dlrm-paper``
+   DPP session through ``dlrm_dpp_batches(CONFIG, 512, device="cuda")``
+   with the launch counts set to 0 just before, checks that every data
+   path kernel launched, that the batches have the expected shapes and
+   finite dense values, and that they are byte-identical (as a multiset:
+   workers race) to the port's numpy-engine session on the same data;
+   prints batches/s and rows/s.
+5. The trainer path: with the launch counts set to 0, serves the
+   ``dlrm-paper`` session with its one cut (vocab 200,000 per table instead
+   of 2,000,000: the store's host tier is numpy on the host) and trains 8
+   steps of the tiered-store DLRM on its batches with ``Trainer(...,
+   device="cuda")`` and ``kernel_bags=True``; checks that
+   ``embedding_bag`` launched, that every loss is finite, and that the
+   same loop on the CPU (same batches, same tables) gives every step's
+   loss within rtol 1e-4.  Prints per-step times, steps/s, rows/s, the
+   hot rate and the device idle share of a profiled run, then holds
+   ``embedding_bag`` bit-exact against its plain version at the operands of
+   that run's first fully-hot lookup and times it (and
+   ``torch.nn.functional.embedding_bag`` as the library yardstick).
+6. Prints one JSON line with every kernel's numbers, the card's line, and
    last the result line ``{"ok": true, "device": {...}}``.
+
+Float32 matrix products run in full float32 (TF32 is switched off for
+both matmul and cuDNN).
 
 Any failure raises, so the script exits nonzero and prints no result.
 """
@@ -36,6 +55,11 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BATCH = 512
+# the trainer path's one cut: the store's host tier is numpy on the host,
+# 43 GB at 2M rows per table; the card's work is the same at either vocab
+TRAIN_VOCAB = 200_000
+TRAIN_STEPS = 8
+HOT_ROWS = 1024
 
 
 def _setup():
@@ -47,6 +71,8 @@ def _setup():
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -115,6 +141,7 @@ def _capture_operands(torch):
     from repro_torch.core.decode import TorchDecodeEngine
     from repro_torch.core.engine import TorchEngine
     from repro_torch.core.reader import TableReader
+    from repro_torch.configs.dlrm_paper import CONFIG
     from repro_torch.launch.train import dlrm_dpp_table
 
     class CaptureDecode(TorchDecodeEngine):
@@ -152,7 +179,7 @@ def _capture_operands(torch):
             ))
             return super()._launch(mat, codes, p0, p1, borders)
 
-    table, spec = dlrm_dpp_table(BATCH)
+    table, spec = dlrm_dpp_table(CONFIG, BATCH)
     decode = CaptureDecode()
     reader = TableReader(table, list(spec.feature_ids), record_popularity=False,
                          decode_engine=decode)
@@ -394,11 +421,12 @@ def _serve(torch, engine: str, profile: bool = False):
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as profiler
 
+    from repro_torch.configs.dlrm_paper import CONFIG
     from repro_torch.launch.train import dlrm_dpp_batches
 
     t0 = time.perf_counter()
     batches, session = dlrm_dpp_batches(
-        BATCH, device="cuda", engine=engine, decode_engine=engine,
+        CONFIG, BATCH, device="cuda", engine=engine, decode_engine=engine,
     )
     t1 = time.perf_counter()
     out = []
@@ -435,22 +463,321 @@ def _serve(torch, engine: str, profile: bool = False):
     return out, session, serve_s, device_s
 
 
+def _bits_equal(torch, a, b) -> bool:
+    """Bit-for-bit equality of two float32 tensors (NaN payloads and signed
+    zeros included, which ``torch.equal`` would not tell apart)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.int32),
+                            b.contiguous().view(torch.int32)))
+
+
+def _bag_adversarial_checks(torch) -> None:
+    """``embedding_bag`` against its plain version on bags the main path
+    never makes: empty bags, duplicate ids, the last row, fractional
+    weights, L and E that are not multiples of 32 (E=16 is dlrm-smoke's),
+    L longer than a shared-memory chunk, NaN and inf rows under a mask of 0,
+    a NaN mask, subnormal rows, ids out of range (clamped) and a table of
+    more than 2^31 elements (int64 offsets)."""
+    import numpy as np
+
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.kernels import ref
+
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    def check(name, table, ids, mask):
+        out = {}
+        for mode in ("mean", "sum"):
+            got = kbag.embedding_bag(table, ids, mask, mode=mode)
+            want = ref.embedding_bag(table, ids, mask, mode=mode)
+            torch.cuda.synchronize()
+            if not _bits_equal(torch, got, want):
+                raise RuntimeError(f"embedding_bag ({mode}): {name} differs from the "
+                                   "plain version")
+            out[mode] = got
+        return out
+
+    rng = np.random.default_rng(12)
+    for v, e, b, l in ((7, 1, 5, 3), (50, 16, 9, 8), (300, 40, 64, 33),
+                       (1000, 128, 100, 300), (64, 1000, 8, 5), (10, 128, 4, 0)):
+        table = rng.standard_normal((v, e)).astype(np.float32)
+        ids = rng.integers(0, v, (b, l)).astype(np.int32)
+        mask = (rng.random((b, l)) < 0.6).astype(np.float32)
+        if l:
+            mask[: b // 3] *= rng.random((b // 3, l)).astype(np.float32) * 3   # fractional
+            mask[-1] = 0.0                                                   # an empty bag
+            ids[-2] = ids[-2, 0]                                             # duplicates
+            ids[0, 0] = v - 1                                                # the last row
+            ids[1, 0], ids[2, -1] = -3, v + 5                                # clamped
+        out = check(f"(V={v}, E={e}, B={b}, L={l})", cuda(table), cuda(ids), cuda(mask))
+        empty = out["sum"][-1:] if l else out["sum"]
+        if not torch.equal(empty, torch.zeros_like(empty)):
+            raise RuntimeError("embedding_bag: an empty bag is not 0")
+    print("[adversarial] embedding_bag E in (1, 16, 40, 128, 1000), L up to 300, "
+          "empty/duplicate/last-row/clamped/fractional: bit-exact", flush=True)
+
+    table = np.array([[1, 2, 3, 4], [np.nan, np.inf, -np.inf, 1],
+                      [1e-40, -1e-42, 3e-39, 5]], np.float32)
+    ids = np.array([[0, 1], [2, 2], [1, 1], [0, 2], [2, 0]], np.int32)
+    mask = np.array([[1, 0], [1, 0], [0, 0], [np.nan, 1], [1, 0]], np.float32)
+    out = check("NaN/inf/subnormal rows", cuda(table), cuda(ids), cuda(mask))["sum"].cpu()
+    if not (torch.isnan(out[0, :3]).all() and torch.isnan(out[2, :3]).all()
+            and torch.isnan(out[3]).all()):
+        raise RuntimeError("embedding_bag: NaN/inf rows under a mask of 0 must give NaN")
+    if not torch.equal(out[1].view(torch.int32), torch.from_numpy(table[2]).view(torch.int32)):
+        raise RuntimeError("embedding_bag: subnormal rows were flushed")
+    print("[adversarial] embedding_bag NaN/inf rows under mask 0 -> NaN, NaN mask, "
+          "subnormals kept: bit-exact", flush=True)
+
+    e = 128
+    v = 2 ** 31 // e + 4096                       # more than 2^31 elements
+    big = torch.zeros((v, e), dtype=torch.float32, device="cuda")
+    big[-4096:] = torch.randn((4096, e), device="cuda")
+    ids = cuda(rng.integers(v - 4096, v, (64, 8)).astype(np.int32))
+    mask = cuda((rng.random((64, 8)) < 0.7).astype(np.float32))
+    check(f"table ({v}, {e})", big, ids, mask)
+    del big
+    torch.cuda.empty_cache()
+    print(f"[adversarial] embedding_bag table ({v}, {e}) = {v * e} elements: bit-exact",
+          flush=True)
+
+
+def _train_run(torch, cfg, batches, tables, device, store_cls=None, profile=False):
+    """Train ``TRAIN_STEPS`` steps of the tiered-store DLRM on the recorded
+    batches; returns the trainer, its store, the wall seconds and (when
+    profiled) the profiler."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import TieredEmbeddingStore, Trainer, TrainerConfig
+
+    store = (store_cls or TieredEmbeddingStore)(
+        tables, HOT_ROWS, admit_reads=2, device=device)
+    trainer = Trainer(
+        cfg,
+        OptimizerConfig(learning_rate=1e-2, warmup_steps=2, total_steps=TRAIN_STEPS),
+        TrainerConfig(max_steps=TRAIN_STEPS, kernel_bags=True, trace_stall=False),
+        embedding_store=store, device=device,
+    )
+    prof = (profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if profile else None)
+    if prof is not None:
+        prof.start()
+    t0 = time.perf_counter()
+    state = trainer.fit(iter(batches))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.stop()
+    if state["step"] != TRAIN_STEPS:
+        raise RuntimeError(f"{device} trainer took {state['step']} steps, "
+                           f"expected {TRAIN_STEPS}")
+    losses = [m.loss for m in trainer.history]
+    print(f"[train] {device}: {TRAIN_STEPS} steps in {wall:.3f} s, "
+          f"{TRAIN_STEPS / wall:.4f} steps/s, {TRAIN_STEPS * BATCH / wall:.1f} rows/s, "
+          f"hot_rate {store.stats.hot_rate:.4f}, kernel_bags {store.stats.kernel_bags}, "
+          f"losses {losses}", flush=True)
+    for m in trainer.history:
+        print(f"[train] {device} step {m.step}: loss {m.loss:.6f} embed_fetch_s "
+              f"{m.embed_fetch_s:.4f} step_time_s {m.step_time_s:.4f} stall_s "
+              f"{m.stall_s:.6f} hot_rate {m.hot_rate:.4f}", flush=True)
+    return trainer, store, wall, prof
+
+
+def _train_path(torch):
+    """The trainer path: serve the cut-vocab dlrm-paper session on the card,
+    train on its batches on the card and on the CPU, profile a third run;
+    returns the main run's launch counts and the kernel operands of the
+    profiled run's first fully-hot lookup."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.dlrm_paper import CONFIG
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import dlrm_dpp_batches
+    from repro_torch.train import TieredEmbeddingStore, init_tables
+
+    cfg = dataclasses.replace(CONFIG, vocab_per_table=TRAIN_VOCAB)
+    t = time.perf_counter()
+    tables = init_tables(cfg, seed=3)
+    print(f"[train] tables {tables.shape} f32 ({tables.nbytes / 1e9:.2f} GB) drawn in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+
+    # the main path: counts set to 0 just before, read just after
+    build.LAUNCHES.reset()
+    t = time.perf_counter()
+    gen, session = dlrm_dpp_batches(cfg, BATCH, device="cuda")
+    batches = list(gen)
+    if session.state != "COMPLETED" or len(batches) != TRAIN_STEPS:
+        raise RuntimeError(f"session {session.state} served {len(batches)} batches")
+    print(f"[train] served {len(batches)} batches of the vocab-{TRAIN_VOCAB} session in "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    for b in batches:
+        if b["sparse_ids"].max() >= TRAIN_VOCAB or b["sparse_ids"].min() < 0:
+            raise RuntimeError("served ids outside the cut vocab")
+    live = np.mean([b["sparse_mask"].sum() for b in batches])
+    trainer, store, gpu_s, _ = _train_run(torch, cfg, batches, tables, "cuda")
+    launches = build.LAUNCHES.snapshot()
+    print(f"[train] main path launches {launches}", flush=True)
+    if launches.get("embedding_bag", 0) <= 0 or store.stats.kernel_bags <= 0:
+        raise RuntimeError("the trainer path never launched embedding_bag")
+    gpu_hist = trainer.history
+    gpu_losses = np.array([m.loss for m in gpu_hist])
+    if not np.isfinite(gpu_losses).all():
+        raise RuntimeError(f"non-finite losses {gpu_losses}")
+    stats = {k: getattr(store.stats, k) for k in (
+        "lookups", "hot_hits", "dram_fetches", "kernel_bags", "admitted", "evicted",
+        "refreshed", "hot_rows")}
+    del trainer, store
+
+    cpu_trainer, cpu_store, cpu_s, _ = _train_run(torch, cfg, batches, tables, "cpu")
+    cpu_losses = np.array([m.loss for m in cpu_trainer.history])
+    rel = np.abs(cpu_losses - gpu_losses) / np.abs(cpu_losses)
+    if not np.allclose(gpu_losses, cpu_losses, rtol=1e-4, atol=0):
+        raise RuntimeError(f"card losses {gpu_losses} vs CPU losses {cpu_losses}")
+    print(f"[train] card vs CPU loss: max rel diff {rel.max():.3e} (rtol 1e-4)", flush=True)
+    del cpu_trainer, cpu_store
+
+    class TimedStore(TieredEmbeddingStore):
+        """Host seconds of the store's phases, and the operands of the first
+        kernel launch (copied on the host, so the profile holds no extra
+        device work)."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.seconds = {"pooled": 0.0, "bag_launch": 0.0, "apply_sparse_update": 0.0}
+            self.operands = None
+
+        def _timed(self, name, fn, *a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.seconds[name] += time.perf_counter() - t0
+            return out
+
+        def pooled(self, *a, **k):
+            return self._timed("pooled", super().pooled, *a, **k)
+
+        def apply_sparse_update(self, *a, **k):
+            return self._timed("apply_sparse_update", super().apply_sparse_update, *a, **k)
+
+        def _bag_launch(self, table, ids, mask):
+            if self.operands is None:
+                self.operands = (table.copy(), ids.copy(), mask.copy())
+            return self._timed("bag_launch", super()._bag_launch, table, ids, mask)
+
+    trainer, store, prof_s, prof = _train_run(torch, cfg, batches, tables, "cuda",
+                                              store_cls=TimedStore, profile=True)
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type == cuda and ev.self_device_time_total > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total
+    busy_s = sum(by_name.values()) / 1e6
+    copy_s = sum(v for k, v in by_name.items() if "memcpy" in k.lower()) / 1e6
+    bag_s = sum(v for k, v in by_name.items() if "embedding_bag" in k) / 1e6
+    step_s = sum(m.step_time_s for m in trainer.history)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(json.dumps({"train": {
+        "config": cfg.name, "vocab_per_table": TRAIN_VOCAB, "batch": BATCH,
+        "steps": TRAIN_STEPS, "hot_rows_per_table": HOT_ROWS,
+        "live_ids_per_batch": float(live),
+        "card_s": gpu_s, "cpu_s": cpu_s, "profiled_card_s": prof_s,
+        "card_steps_per_s": TRAIN_STEPS / gpu_s, "card_rows_per_s": TRAIN_STEPS * BATCH / gpu_s,
+        "card_losses": gpu_losses.tolist(), "cpu_losses": cpu_losses.tolist(),
+        "max_rel_loss_diff": float(rel.max()),
+        "card_step_metrics": [dataclasses.asdict(m) for m in gpu_hist],
+        "store_stats": stats, "hot_rate": gpu_hist[-1].hot_rate,
+        "profiled_host_s": dict(store.seconds, embed_fetch=sum(
+            m.embed_fetch_s for m in trainer.history), step_time=step_s,
+            mlp_step=step_s - store.seconds["apply_sparse_update"]),
+        "device_busy_s": busy_s, "device_copy_s": copy_s,
+        "device_embedding_bag_s": bag_s, "device_idle_share": 1 - busy_s / prof_s,
+        "device_top_us": dict(top),
+    }}), flush=True)
+    operands = store.operands
+    del trainer, store
+    return launches, operands
+
+
+def _bag_checks(torch, operands):
+    """``embedding_bag`` at the operands of the trainer's first fully-hot
+    lookup: bit-exact against its plain version in both modes, times of
+    kernel, plain version and ``torch.nn.functional.embedding_bag``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.kernels import ref
+
+    table, ids, mask = (torch.from_numpy(a).cuda() for a in operands)
+    for mode in ("mean", "sum"):
+        got = kbag.embedding_bag(table, ids, mask, mode=mode)
+        want = ref.embedding_bag(table, ids, mask, mode=mode)
+        torch.cuda.synchronize()
+        if not _bits_equal(torch, got, want):
+            raise RuntimeError(f"embedding_bag ({mode}): kernel disagrees with its plain "
+                               "version at the main path's shapes")
+    err = float((got - want).abs().max().item())
+    ids64 = ids.long()
+    denom = torch.clamp(mask.sum(1, keepdim=True), min=1.0)
+    kernel = lambda: kbag.embedding_bag(table, ids, mask, mode="mean")
+    plain = lambda: ref.embedding_bag(table, ids, mask, mode="mean")
+    library = lambda: F.embedding_bag(ids64, table, mode="sum",
+                                      per_sample_weights=mask) / denom
+    want = plain()
+    if not torch.allclose(library(), want, rtol=1e-5, atol=1e-6):
+        raise RuntimeError("F.embedding_bag disagrees with the plain version")
+    b, l = ids.shape
+    e = table.shape[1]
+    # the launch reads only the rows its ids name (every slot is read,
+    # masked ones too), plus ids and mask, and writes the (b, e) output
+    rows = int(torch.unique(ids).numel())
+    nbytes = rows * e * table.element_size() + sum(
+        t.numel() * t.element_size() for t in (ids, mask)) + 4 * b * e
+    flops = 2 * b * l * e
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_OPS_PER_S * 1e3
+    row = dict(
+        name="embedding_bag", route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag.py:40",
+        shape=f"table {tuple(table.shape)} ids/mask {tuple(ids.shape)} "
+              f"fully-hot bags {b} rows read {rows}",
+        max_abs_err=err, ms=_device_ms(torch, kernel), plain_ms=_device_ms(torch, plain, iters=10),
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=_device_ms(torch, library), call_ms=_call_ms(torch, kernel),
+        plain_call_ms=_call_ms(torch, plain, iters=20), library_call_ms=_call_ms(torch, library),
+    )
+    print(f"[kernel] embedding_bag {row['shape']}: bit-exact (mean and sum), "
+          f"kernel_ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} "
+          f"library_ms={row['library_ms']:.6f} bound_ms={row['bound_ms']:.6f} "
+          f"(rows read {rows}) call_ms={row['call_ms']:.6f} plain_call_ms={row['plain_call_ms']:.6f} "
+          f"library_call_ms={row['library_call_ms']:.6f}", flush=True)
+    return row
+
+
 def main() -> int:
     torch, card = _setup()
     import numpy as np
 
     from repro_torch.kernels import build
 
-    t = time.perf_counter()
+    t_all = t = time.perf_counter()
     build.build(verbose=True)
     build.library()
     print(f"[build] {time.perf_counter() - t:.1f} s", flush=True)
 
+    t = time.perf_counter()
     operands, waves = _capture_operands(torch)
     results = _kernel_checks(torch, operands, waves)
     _adversarial_checks(torch)
+    _bag_adversarial_checks(torch)
+    print(f"[phase] data-path kernel checks and adversarial inputs "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
 
-    # the main path: counts set to 0 just before, read just after
+    # the serving path: counts set to 0 just before, read just after
+    t = time.perf_counter()
     build.LAUNCHES.reset()
     batches, session, serve_s, _ = _serve(torch, "torch")
     torch.cuda.synchronize()
@@ -462,11 +789,11 @@ def main() -> int:
     n_rows = sum(p.num_rows for p in session.table.partitions.values())
     if sum(len(b["label"]) for b in batches) != n_rows or len(batches) != n_rows // BATCH:
         raise RuntimeError(f"served {len(batches)} batches, expected {n_rows // BATCH}")
-    from repro_torch.launch import train
+    from repro_torch.configs.dlrm_paper import CONFIG
 
-    ids_shape = (BATCH, train.DLRM_PAPER_NUM_TABLES, train.DLRM_PAPER_MAX_IDS_PER_FEATURE)
+    ids_shape = (BATCH, CONFIG.num_tables, CONFIG.max_ids_per_feature)
     for b in batches:
-        if (b["dense"].shape != (BATCH, train.DLRM_PAPER_NUM_DENSE)
+        if (b["dense"].shape != (BATCH, CONFIG.num_dense)
                 or not np.isfinite(b["dense"]).all()):
             raise RuntimeError(f"bad dense block {b['dense'].shape}")
         if b["sparse_ids"].shape != ids_shape or b["sparse_mask"].shape != ids_shape:
@@ -490,6 +817,17 @@ def main() -> int:
 
     for r in results:
         r["launches"] = launches[r["name"]]
+    print(f"[phase] serving path {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = time.perf_counter()
+    train_launches, bag_operands = _train_path(torch)
+    print(f"[phase] trainer path {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    bag = _bag_checks(torch, bag_operands)
+    bag["launches"] = train_launches["embedding_bag"]
+    results.append(bag)
+    print(f"[phase] embedding_bag checks {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"[phase] total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": results}))
     print(card)
     print(json.dumps({"ok": True, "device": {

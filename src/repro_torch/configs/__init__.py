@@ -1,0 +1,28 @@
+"""Architecture configs of the port.
+
+Each architecture module defines ``CONFIG`` (the exact public config) and
+``SMOKE`` (a reduced same-family config for CPU tests), as the reference's
+``repro.configs`` does.  Only ``dlrm-paper`` is ported so far.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Any
+
+ARCH_IDS = ["dlrm-paper"]
+
+_MODULES = {"dlrm-paper": "dlrm_paper"}
+
+
+def _module(arch: str):
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; the port has {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+
+
+def get_config(arch: str) -> Any:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> Any:
+    return _module(arch).SMOKE

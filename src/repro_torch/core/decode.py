@@ -45,6 +45,7 @@ import torch
 
 from repro_torch.core import dwrf
 from repro_torch.core.schema import ColumnBatch, SparseColumn
+from repro_torch.device import resolve
 from repro_torch.kernels import ops as kops
 from repro_torch.obs import counter
 
@@ -216,12 +217,7 @@ class TorchDecodeEngine(DecodeEngine):
 
     def __init__(self, device: Union[str, torch.device] = "cuda"):
         super().__init__()
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TorchDecodeEngine(device='cuda') needs a CUDA device; "
-                "pass device='cpu' to run the plain versions"
-            )
+        self.device = resolve(device, "TorchDecodeEngine")
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)

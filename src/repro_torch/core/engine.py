@@ -45,6 +45,7 @@ from repro_torch.core.transforms import (
     TransformPipeline,
     TransformSpec,
 )
+from repro_torch.device import resolve
 from repro_torch.kernels import ops as kops
 from repro_torch.obs import counter
 
@@ -360,12 +361,7 @@ class TorchEngine(TransformEngine):
         row_quantum: int = 512,
     ):
         super().__init__(pipeline)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TorchEngine(device='cuda') needs a CUDA device; "
-                "pass device='cpu' to run the plain version"
-            )
+        self.device = resolve(device, "TorchEngine")
         self.plan = compile_pipeline(pipeline.specs)
         self.row_quantum = max(1, row_quantum)
 

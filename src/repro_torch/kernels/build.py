@@ -45,6 +45,7 @@ SIGNATURES = {
     "fused_transform_launch": (
         _P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _P,
     ),
+    "embedding_bag_launch": (_P, _P, _P, _P, _I64, _I32, _I64, _I32, _I32, _P),
 }
 
 _lock = threading.Lock()

@@ -2,7 +2,8 @@
 
 A CPU tensor runs the plain PyTorch version (``repro_torch.kernels.ref``);
 a CUDA tensor launches the hand-written kernel (``kernels.decode``,
-``kernels.fused_transform``), which raises on anything it cannot take.
+``kernels.fused_transform``, ``kernels.embedding_bag``), which raises on
+anything it cannot take.
 There is no fallback from a CUDA tensor to the plain version.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import decode as _decode
+from repro_torch.kernels import embedding_bag as _embag
 from repro_torch.kernels import fused_transform as _ft
 from repro_torch.kernels import ref
 
@@ -55,3 +57,12 @@ def ragged_gather(src: torch.Tensor, idx: torch.Tensor,
     if _on_cpu(src):
         return ref.ragged_gather(src, idx, shift)
     return _decode.ragged_gather(src, idx, shift)
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor, *,
+                  mode: str = "mean") -> torch.Tensor:
+    """Pooled bags: table (V, E), ids and mask (B, L) -> (B, E); "mean"
+    divides by max(sum(mask), 1)."""
+    if _on_cpu(table):
+        return ref.embedding_bag(table, ids, mask, mode=mode)
+    return _embag.embedding_bag(table, ids, mask, mode=mode)

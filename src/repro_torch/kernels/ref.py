@@ -14,7 +14,9 @@ Integer hazards of torch (2.x) that shape the code:
     multiplies split the constant into 16-bit halves (``_mul_lo32``);
   * ``torch.maximum``/``minimum`` canonicalize NaN payloads and order
     -0.0/+0.0 unlike XLA, so the float clamp selects on explicit compares
-    of the int32 bit patterns and never materializes a float result.
+    of the int32 bit patterns and never materializes a float result;
+  * a float sum over an axis (``.sum(dim)``) takes its own order, so
+    ``embedding_bag`` adds its slots one at a time, as its kernel does.
 """
 from __future__ import annotations
 
@@ -187,3 +189,26 @@ def ragged_gather(src: torch.Tensor, idx: torch.Tensor,
     lo = flat[idx.to(torch.int64)] >> sh
     hi = (flat[idx.to(torch.int64) + 1] << ((32 - sh) & 31)) & _M32
     return _i32(lo | torch.where(sh == 0, torch.zeros_like(hi), hi))
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
+                  mode: str = "mean") -> torch.Tensor:
+    """Pooled bags in the TPU kernel's order: for l = 0..L-1 in turn,
+    ``out += table[ids[:, l]] * mask[:, l]`` and ``denom += mask[:, l]``
+    (every slot, masked ones too), then in "mean" mode ``out / max(denom,
+    1)`` with a NaN denom kept.  Each product and sum is its own op, so
+    nothing fuses into an FMA.  table (V, E) f32, ids (B, L) int, clamped
+    to [0, V-1]; mask (B, L) f32 -> (B, E) f32."""
+    if mode not in ("mean", "sum"):
+        raise ValueError(f"mode must be 'mean' or 'sum', got {mode!r}")
+    rows = ids.to(torch.int64).clamp(0, table.shape[0] - 1)
+    b, l = ids.shape
+    out = torch.zeros((b, table.shape[1]), dtype=torch.float32, device=table.device)
+    denom = torch.zeros((b, 1), dtype=torch.float32, device=table.device)
+    for j in range(l):
+        w = mask[:, j:j + 1]
+        out = out + table[rows[:, j]] * w
+        denom = denom + w
+    if mode == "mean":
+        out = out / torch.maximum(denom, torch.ones_like(denom))
+    return out

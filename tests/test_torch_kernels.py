@@ -248,6 +248,13 @@ def test_dispatch_refuses_other_devices():
     z = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         kft.fused_transform(cpu, z, z, z)
+    from repro_torch.kernels import embedding_bag as kembag
+
+    table = torch.zeros((4, 8))
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        kembag.embedding_bag(table, cpu[:, :3].contiguous(), torch.zeros((2, 3)))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.embedding_bag(table.to("meta"), meta, meta.float())
 
 
 def test_launch_counts():
@@ -260,3 +267,128 @@ def test_launch_counts():
     assert c.snapshot() == {"a": 2, "b": 1}
     c.reset()
     assert c.snapshot() == {}
+
+
+# -- embedding_bag (the trainer slice) ----------------------------------------
+#
+# The bag shapes of the reference's own differential suite (empty bags,
+# single ids, duplicate ids in one bag, the last row, random 0/1 masks).
+# With 0/1 masks every product is exact, so the plain version's separate
+# multiply and add give the bits of XLA's fused multiply-add: bit-exact.
+
+
+def _bags(kind, seed=0):
+    rng = np.random.default_rng(seed)
+    if kind == "empty":
+        v, e, b, l = 16, 8, 4, 5
+        ids = rng.integers(0, v, (b, l))
+        mask = np.zeros((b, l))
+    elif kind == "single":
+        v, e, b, l = 32, 16, 6, 4
+        ids = rng.integers(0, v, (b, l))
+        mask = np.zeros((b, l))
+        mask[np.arange(b), np.arange(b) % l] = 1.0
+    elif kind == "duplicates":
+        v, e = 8, 8
+        ids = np.array([[3, 3, 3, 5], [0, 0, 7, 7]])
+        mask = np.ones((2, 4))
+    elif kind == "last_row":
+        v, e = 19, 8
+        ids = np.full((3, 4), v - 1)
+        mask = np.ones((3, 4))
+    else:                                   # random bags, E and L not multiples of 32
+        v, e, b, l = 300, 40, 64, 33
+        ids = rng.integers(0, v, (b, l))
+        mask = (rng.random((b, l)) < 0.5).astype(np.float64)
+    table = rng.standard_normal((v, e)).astype(np.float32)
+    return table, ids.astype(np.int32), mask.astype(np.float32)
+
+
+def _same_bits(got, want):
+    np.testing.assert_array_equal(np.asarray(got, np.float32).view(np.int32),
+                                  np.asarray(want, np.float32).view(np.int32))
+
+
+@pytest.mark.parametrize("mode", ["mean", "sum"])
+@pytest.mark.parametrize("kind", ["empty", "single", "duplicates", "last_row", "random"])
+def test_embedding_bag_matches_pallas(kind, mode):
+    table, ids, mask = _bags(kind)
+    want = np.asarray(jops.embedding_bag(table, ids, mask, mode=mode, use_pallas=True))
+    got = ops.embedding_bag(_t(table), _t(ids), _t(mask), mode=mode).numpy()
+    _same_bits(got, want)
+    if kind == "empty":
+        _same_bits(got, np.zeros_like(want))
+    if kind == "duplicates":
+        want0 = 3 * table[3] + table[5]
+        np.testing.assert_allclose(got[0], want0 / 4 if mode == "mean" else want0, rtol=1e-6)
+
+
+def _separately_rounded(table, ids, mask, mode):
+    """numpy: each product and each sum rounded to float32 on its own."""
+    out = np.zeros((ids.shape[0], table.shape[1]), np.float32)
+    denom = np.zeros((ids.shape[0], 1), np.float32)
+    for j in range(ids.shape[1]):
+        w = mask[:, j:j + 1]
+        out = out + table[ids[:, j]] * w
+        denom = denom + w
+    return out / np.maximum(denom, np.float32(1)) if mode == "mean" else out
+
+
+@pytest.mark.parametrize("mode", ["mean", "sum"])
+def test_embedding_bag_fractional_weights(mode):
+    """Fractional mask weights: XLA on the CPU contracts the reference's
+    ``out += row * m`` into one FMA, while the port rounds the product and
+    the sum apart (as its CUDA kernel does, so the two agree bit for bit on
+    the card).  Against the reference the difference is bounded by 1e-6 of
+    the bag's sum of magnitudes; against numpy rounding apart it is 0."""
+    rng = np.random.default_rng(9)
+    table = rng.standard_normal((50, 24)).astype(np.float32)
+    ids = rng.integers(0, 50, (20, 17)).astype(np.int32)
+    mask = (rng.random((20, 17)) * (rng.random((20, 17)) < 0.8)).astype(np.float32)
+    mask[0, :3] = [0.25, 1.5, 3.0]
+    got = ops.embedding_bag(_t(table), _t(ids), _t(mask), mode=mode).numpy()
+    _same_bits(got, _separately_rounded(table, ids, mask, mode))
+    want = np.asarray(jops.embedding_bag(table, ids, mask, mode=mode, use_pallas=True))
+    scale = np.einsum("bl,ble->be", np.abs(mask), np.abs(table[ids]))
+    if mode == "mean":
+        scale = scale / np.maximum(mask.sum(1, keepdims=True), 1.0)
+    assert (np.abs(got - want) <= 1e-6 * scale).all()
+
+
+def test_embedding_bag_nan_inf_rows_and_nan_mask():
+    """NaN and inf rows are summed under a mask of 0 (every slot counts,
+    as in the TPU kernel), and a NaN mask keeps the mean's denominator
+    NaN (jnp.maximum, not fmaxf)."""
+    table = np.array([[1, 2, 3, 4], [np.nan, np.inf, -np.inf, 1], [5, 6, 7, 8]],
+                     np.float32)
+    ids = np.array([[0, 1], [2, 2], [1, 1], [0, 2]], np.int32)
+    mask = np.array([[1, 0], [1, 1], [0, 0], [np.nan, 1]], np.float32)
+    for mode in ("mean", "sum"):
+        want = np.asarray(jops.embedding_bag(table, ids, mask, mode=mode, use_pallas=True))
+        got = ops.embedding_bag(_t(table), _t(ids), _t(mask), mode=mode).numpy()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(got[~np.isnan(got)], want[~np.isnan(want)])
+        assert np.isnan(got[0, :3]).all() and np.isnan(got[3]).all()
+
+
+def test_embedding_bag_subnormals_kept_where_xla_flushes():
+    """XLA on the CPU flushes subnormal rows; the port's plain version (and
+    its kernel, built without --ftz) keeps them."""
+    table = np.array([[1e-40, -1e-42, 1.0]], np.float32)
+    ids = np.zeros((1, 2), np.int32)
+    mask = np.array([[1.0, 0.0]], np.float32)
+    xla = np.asarray(jops.embedding_bag(table, ids, mask, mode="sum", use_pallas=True))
+    got = ops.embedding_bag(_t(table), _t(ids), _t(mask), mode="sum").numpy()
+    assert list(xla.ravel()) == [0.0, 0.0, 1.0]
+    _same_bits(got, table)
+
+
+def test_embedding_bag_clamps_ids_and_checks_mode():
+    table, ids, mask = _bags("random", seed=4)
+    wild = ids.copy()
+    wild[0, 0], wild[1, 1] = -7, 10 ** 6
+    fixed = np.clip(wild, 0, table.shape[0] - 1)
+    _same_bits(ops.embedding_bag(_t(table), _t(wild), _t(mask), mode="sum").numpy(),
+               ops.embedding_bag(_t(table), _t(fixed), _t(mask), mode="sum").numpy())
+    with pytest.raises(ValueError, match="mode"):
+        ops.embedding_bag(_t(table), _t(ids), _t(mask), mode="max")

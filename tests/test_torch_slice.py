@@ -7,6 +7,7 @@ port's data generation and DWRF writer make the reference's bytes; and no
 module of the port imports JAX or the reference package.
 """
 import ast
+import dataclasses
 import hashlib
 import itertools
 from pathlib import Path
@@ -22,6 +23,7 @@ from repro.core.datagen import DataGenConfig as JDataGenConfig  # noqa: E402
 from repro.core.datagen import generate_partition as j_generate  # noqa: E402
 from repro.core.schema import make_schema as j_make_schema  # noqa: E402
 from repro.launch.train import dlrm_dpp_batches as j_dlrm_dpp_batches  # noqa: E402
+from repro_torch import configs  # noqa: E402
 from repro_torch.convert import column_batch_from_numpy  # noqa: E402
 from repro_torch.core import dwrf  # noqa: E402
 from repro_torch.core.datagen import DataGenConfig, generate_partition  # noqa: E402
@@ -56,12 +58,8 @@ def test_slice_matches_reference_session():
     n = 2 * ROWS // BATCH
     jb, js = j_dlrm_dpp_batches(SMOKE, BATCH, rows_per_partition=ROWS)
     want = _take_all(jb, js, n)
-    pb, ps = train.dlrm_dpp_batches(
-        BATCH, num_dense=SMOKE.num_dense, num_tables=SMOKE.num_tables,
-        vocab_per_table=SMOKE.vocab_per_table,
-        max_ids_per_feature=SMOKE.max_ids_per_feature,
-        rows_per_partition=ROWS, device="cpu",
-    )
+    pb, ps = train.dlrm_dpp_batches(configs.get_smoke_config("dlrm-paper"), BATCH,
+                                    rows_per_partition=ROWS, device="cpu")
     got = _take_all(pb, ps, n)
     assert len(want) == len(got) == n
     # workers race, so the batch order is not fixed: compare multisets
@@ -76,10 +74,22 @@ def test_slice_matches_reference_session():
 
 
 def test_dlrm_paper_constants_match_reference():
-    cfg = jconfigs.get_config("dlrm-paper")
-    assert (train.DLRM_PAPER_NUM_DENSE, train.DLRM_PAPER_NUM_TABLES,
-            train.DLRM_PAPER_VOCAB_PER_TABLE, train.DLRM_PAPER_MAX_IDS_PER_FEATURE) == (
-        cfg.num_dense, cfg.num_tables, cfg.vocab_per_table, cfg.max_ids_per_feature)
+    """The port's dlrm-paper CONFIG and SMOKE equal the reference's field by
+    field (dtypes by name: torch's float32 for jnp's)."""
+    for arch_cfg in ("get_config", "get_smoke_config"):
+        got = getattr(configs, arch_cfg)("dlrm-paper")
+        want = getattr(jconfigs, arch_cfg)("dlrm-paper")
+        names = [f.name for f in dataclasses.fields(want)]
+        assert [f.name for f in dataclasses.fields(got)] == names
+        for n in names:
+            if n.endswith("_dtype"):
+                assert str(getattr(got, n)) == f"torch.{np.dtype(getattr(want, n)).name}", n
+            else:
+                assert getattr(got, n) == getattr(want, n), n
+        assert (got.num_layers, got.sub_quadratic, got.attention_free) == (
+            want.num_layers, want.sub_quadratic, want.attention_free)
+    with pytest.raises(KeyError, match="qwen3-8b"):
+        configs.get_config("qwen3-8b")
 
 
 @pytest.mark.parametrize("flattened", [True, False])
@@ -135,6 +145,8 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    covered = {p.parent.name for p in files}
+    assert {"configs", "models", "optim", "train", "kernels", "core"} <= covered
     bad = []
     for path in files:
         for mod in _imported_modules(path):
