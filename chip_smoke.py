@@ -9,8 +9,8 @@
    full-width ``dlrm-paper`` data path, holds each kernel bit-exact
    (``torch.equal``) against its plain PyTorch version on the card, and
    times kernel, plain version and, where one exists, the single PyTorch
-   call computing the same function (device time from torch.profiler,
-   call time from CUDA events).  Then holds each kernel bit-exact on
+   call computing the same function (device time and call time both from
+   CUDA events: ``_queued_ms``, ``_call_ms``).  Then holds each kernel bit-exact on
    adversarial inputs the main path never makes (NaN payloads, signed
    zeros, subnormals, extreme parameters, both tile layouts, long bitmaps,
    every byte shift; for ``embedding_bag`` empty bags, duplicate ids, the
@@ -28,15 +28,46 @@
    of 2,000,000: the store's host tier is numpy on the host) and trains 8
    steps of the tiered-store DLRM on its batches with ``Trainer(...,
    device="cuda")`` and ``kernel_bags=True``; checks that
-   ``embedding_bag`` launched, that every loss is finite, and that the
-   same loop on the CPU (same batches, same tables) gives every step's
-   loss within rtol 1e-4.  Prints per-step times, steps/s, rows/s, the
-   hot rate and the device idle share of a profiled run, then holds
+   ``embedding_bag`` launched, that every loss is finite, and that a CPU
+   trainer (same batches, same tables) stepped in turn with a card
+   trainer, loading the card's MLP weights and AdamW state before each
+   step and taking the card's ReLU pattern (its pre-activations within
+   1e-4 of their rms of the card's), gives every step's loss within rtol
+   1e-4, and that after each
+   step the card's AdamW mu, nu and grad norm are within 1e-4 (relative
+   norm, leaf by leaf) of the CPU's and its parameters within 1e-5 of the
+   float64 AdamW update of its own state; the lockstep card losses must
+   equal the main run's.  Prints per-step times, steps/s, rows/s, the hot
+   rate and the device idle share of a profiled run, then holds
    ``embedding_bag`` bit-exact against its plain version at the operands of
    that run's first fully-hot lookup and times it (and
    ``torch.nn.functional.embedding_bag`` as the library yardstick).
-6. Prints one JSON line with every kernel's numbers, the card's line, and
+6. The LM serving path (``_lm_serve_path``): with the launch counts set to 0,
+   serves the full-width ``qwen3-8b`` (36 layers, d_model 4096, bf16,
+   weights drawn on the card from seed 0) through
+   ``repro_torch.launch.serve.serve``: batch 4, prompt 1024, 32 decode
+   steps, cache 128.  Checks that ``flash_attention`` launched once per
+   layer of the prefill (36) and that the logits are finite; prints
+   ``prefill_s``, ``decode_tok_per_s``, peak device memory and the device
+   idle share of a profiled decode loop.  Then a full-width
+   ``BatchingServer`` (4 slots, 4 requests of 16 prompt tokens and 8 new
+   ones) and its ``latency_report``.
+7. ``flash_attention`` against its plain version on the card: at q/k/v
+   captured from layers 0 and 35 of that prefill (bf16 as the path runs
+   it, and the same operands in float32 at the float32 tolerance), and
+   on adversarial
+   inputs (S of 1, 63, 65, 1000; T != S; D of 32, 48, 64, 128; GQA groups
+   1 and 4; float32 and bf16; scores of |s| ~ 1e4 whose running max moves
+   at every key tile); times kernel, plain version and
+   ``F.scaled_dot_product_attention`` beside the bound.  Then a depth-2,
+   full-width model from one set of weights on the card and on the CPU:
+   logits within tolerance and greedy tokens equal, in float32 and bf16.
+8. Prints one JSON line with every kernel's numbers, the card's line, and
    last the result line ``{"ok": true, "device": {...}}``.
+
+The device's busy time and idle share in steps 4-6 come from
+torch.profiler; where it records no device activity they print as not
+measured (null in the JSON), and nothing else depends on it.
 
 Float32 matrix products run in full float32 (TF32 is switched off for
 both matmul and cuDNN).
@@ -54,12 +85,29 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor-core peak
 BATCH = 512
 # the trainer path's one cut: the store's host tier is numpy on the host,
 # 43 GB at 2M rows per table; the card's work is the same at either vocab
 TRAIN_VOCAB = 200_000
 TRAIN_STEPS = 8
 HOT_ROWS = 1024
+# the trainer's lockstep check, per leaf: the card's mu, nu and grad norm
+# against the CPU's after one step from the same state, and the card's
+# parameters against the float64 AdamW update of its own state (float32
+# rounding of the update is ~3e-7 of it; an update 1% off moves weights by
+# more than 1e-5 of their norm)
+LOCKSTEP_RTOL = 1e-4
+UPDATE_RTOL = 1e-5
+# the LM serving path: launch/serve.py's flags at full qwen3-8b width
+LM_BATCH, LM_PROMPT, LM_DECODE, LM_CACHE = 4, 1024, 32, 128
+LM_CAPTURE_LAYERS = (0, 35)
+# flash_attention against its plain version: the reference's own sweep
+# (tests/test_kernels.py) holds its Pallas kernel to its dense oracle
+# within atol = rtol = 2e-5 (float32) and 2e-2 (bf16) on unit-normal
+# operands.  Attention is linear in v, so on operands whose v has another
+# scale the same bound applies to out / rms(v).
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def _setup():
@@ -108,29 +156,76 @@ def _call_ms(torch, fn, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_us(torch, prof) -> float:
-    """Device time (us) of every kernel and copy a profiler run recorded."""
-    cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == cuda)
-
-
-def _device_ms(torch, fn, iters: int = 50) -> float:
-    """Device time per call (kernels and copies that the call runs, summed),
-    from torch.profiler's CUDA activity."""
-    from torch.profiler import ProfilerActivity, profile
-
+def _queued_ms(torch, fn, iters: int = 20) -> float:
+    """Device time per call, from CUDA events around ``iters`` calls that
+    the host queues while the stream is held by a sleep kernel, so the
+    calls run back to back on the device whatever their host cost.  The
+    sleep starts at about twice the host's queueing time; where it ends
+    before the host has queued every call (the sleep was short, or the
+    launch queue filled), it doubles and fewer calls are queued."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    cycles = max(10 ** 8, int(4e9 * host_s))    # ~2 GHz: 10**8 cycles ~50 ms
+    for _ in range(8):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
+        queued = not start.query()          # the sleep outlasted the queueing
         torch.cuda.synchronize()
-    us = _device_us(torch, prof)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / iters / 1e3
+        if queued:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+        iters = max(1, iters // 2)
+    raise RuntimeError("the host could not queue the calls ahead of the device")
+
+
+def _device_by_name(torch, prof):
+    """Device time (us) of a profiler run by kernel or copy name, and the
+    number of device kernels and copies it recorded.  ``({}, 0)`` where the
+    profiler recorded no device activity: CUPTI tracing is not open to
+    every process on every machine, so the busy times and idle shares read
+    from it are then reported as not measured (null), and no check or
+    kernel time rests on it."""
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name, count = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type == cuda and ev.self_device_time_total > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total
+            count += ev.count
+    return by_name, count
+
+
+def _warm_profiler(torch) -> None:
+    """One throwaway torch.profiler session on a small op.  The first
+    session of a process can record no device activity, and it stalls the
+    host while CUPTI starts (a profiled DPP session then ran 7x slower and
+    re-served splits whose leases ran out), so it is taken before any
+    measured one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones(1 << 20, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(10):
+            x = x * 1.0
+        torch.cuda.synchronize()
+
+
+def _idle_share(busy_s, wall_s):
+    return None if busy_s is None else 1 - busy_s / wall_s
+
+
+def _fmt(x, spec: str) -> str:
+    return "not measured" if x is None else format(x, spec)
 
 
 def _capture_operands(torch):
@@ -265,9 +360,9 @@ def _kernel_checks(torch, operands, waves):
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
         if c["library"] is not None and not torch.equal(c["library"](), want):
             raise RuntimeError(f"{c['name']}: library call disagrees with the plain version")
-        ms = _device_ms(torch, c["kernel"])
-        plain_ms = _device_ms(torch, c["plain"], iters=10)
-        library_ms = _device_ms(torch, c["library"]) if c["library"] else None
+        ms = _queued_ms(torch, c["kernel"])
+        plain_ms = _queued_ms(torch, c["plain"], iters=5)
+        library_ms = _queued_ms(torch, c["library"]) if c["library"] else None
         call_ms = _call_ms(torch, c["kernel"])
         plain_call_ms = _call_ms(torch, c["plain"], iters=20)
         library_call_ms = _call_ms(torch, c["library"]) if c["library"] else None
@@ -442,7 +537,8 @@ def _serve(torch, engine: str, profile: bool = False):
     if prof is not None:
         torch.cuda.synchronize()
         prof.stop()
-        device_s = _device_us(torch, prof) / 1e6
+        by_name, _ = _device_by_name(torch, prof)
+        device_s = sum(by_name.values()) / 1e6 if by_name else None
     if session.state != "COMPLETED":
         raise RuntimeError(f"{engine} session ended {session.state}")
     m = session.worker_metrics()
@@ -457,8 +553,8 @@ def _serve(torch, engine: str, profile: bool = False):
     print(f"[serve] {engine}: {len(out)} batches, setup {t1 - t0:.3f} s, serve "
           f"{serve_s:.3f} s, {len(out) / serve_s:.3f} batches/s, "
           f"{rows / serve_s:.1f} rows/s, workers {len(session.workers)}"
-          + (f", device busy {device_s:.6f} s, idle share {1 - device_s / serve_s:.4f}"
-             if device_s is not None else "")
+          + (f", device busy {_fmt(device_s, '.6f')} s, idle share "
+             f"{_fmt(_idle_share(device_s, serve_s), '.4f')}" if profile else "")
           + f", stages {json.dumps(stages)}", flush=True)
     return out, session, serve_s, device_s
 
@@ -542,13 +638,8 @@ def _bag_adversarial_checks(torch) -> None:
           flush=True)
 
 
-def _train_run(torch, cfg, batches, tables, device, store_cls=None, profile=False):
-    """Train ``TRAIN_STEPS`` steps of the tiered-store DLRM on the recorded
-    batches; returns the trainer, its store, the wall seconds and (when
-    profiled) the profiler."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as profiler
-
+def _make_trainer(cfg, tables, device, store_cls=None):
+    """The tiered-store DLRM trainer of the trainer path, and its store."""
     from repro_torch.optim import OptimizerConfig
     from repro_torch.train import TieredEmbeddingStore, Trainer, TrainerConfig
 
@@ -560,6 +651,143 @@ def _train_run(torch, cfg, batches, tables, device, store_cls=None, profile=Fals
         TrainerConfig(max_steps=TRAIN_STEPS, kernel_bags=True, trace_stall=False),
         embedding_store=store, device=device,
     )
+    return trainer, store
+
+
+def _rel_diff(a, b) -> float:
+    """Norm of a - b over the norm of b, in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _host_state(state):
+    """A CPU copy of a trainer's dense state (params, AdamW mu/nu/step)."""
+    opt = state["opt"]
+    return {"params": {k: v.cpu().clone() for k, v in state["params"].items()},
+            "opt": {"mu": {k: v.cpu().clone() for k, v in opt["mu"].items()},
+                    "nu": {k: v.cpu().clone() for k, v in opt["nu"].items()},
+                    "step": opt["step"].cpu().clone()},
+            "step": state["step"]}
+
+
+def _lockstep(torch, cfg, batches, tables):
+    """Each step on the card and on the CPU from the same dense state: a
+    card trainer and a CPU trainer step through the batches in turn, and
+    before each step the CPU trainer loads the card trainer's MLP weights
+    and AdamW state; each store runs free (its row-wise AdaGrad scales
+    every row by that row's own rms, so rounding stays rounding).
+    Free-running, AdamW's normalized first updates turn rounding-level
+    gradient differences into loss differences of up to 5e-3 in 8 steps on
+    some batch orders, on correct code.  After each step the card's dense
+    state is held leaf by leaf: its mu and nu (which carry the clipped
+    gradients) against the CPU's, within a relative norm of
+    ``LOCKSTEP_RTOL``, its grad norm likewise, and its parameters against
+    the AdamW update worked out here in float64 from its pre-step
+    parameters and its post-step mu and nu, within ``UPDATE_RTOL``.
+    The CPU step takes the card's ReLU pattern: a ReLU derivative jumps at
+    0, and the one or two of a step's ~1.9 M pre-activations that lie
+    within float32 rounding of 0 (about one step in three at this
+    config's init) can round to opposite sides on the two devices, which
+    moves a leaf's gradient by up to 1.5e-3 of its norm (as float32 against
+    float64 does on the CPU; with the other's pattern both agree within
+    3e-7).  The card's pre-activations are recorded, the CPU's ReLUs keep
+    exactly the units the card kept, and the CPU's pre-activations must
+    agree with the card's within ``LOCKSTEP_RTOL`` of their rms, so the
+    borrowed pattern can differ only where a value is at rounding level.
+    Returns both loss lists, the worst relative differences and the CPU's
+    seconds."""
+    from repro_torch.optim.optimizers import wsd_schedule
+
+    card, _ = _make_trainer(cfg, tables, "cuda")
+    cpu, _ = _make_trainer(cfg, tables, "cpu")
+    oc = card.opt_cfg
+    state = card.init_state()
+    cpu_s = 0.0
+    worst = {"mu": 0.0, "nu": 0.0, "grad_norm": 0.0, "params_vs_update": 0.0,
+             "params_vs_cpu": 0.0, "pre_activations": 0.0, "relu_flips": 0}
+    relu = torch.relu
+    card_z, cpu_z = [], []
+
+    def card_relu(z):
+        card_z.append(z.detach().float().cpu())
+        return relu(z)
+
+    def cpu_relu(z):
+        zc = card_z[len(cpu_z)]
+        cpu_z.append(z.detach())
+        return torch.where(zc > 0, z, torch.zeros((), dtype=z.dtype))
+
+    for i, batch in enumerate(batches):
+        for trainer in (card, cpu):
+            trainer.cfg.max_steps = i + 1
+        pre = _host_state(state)
+        card_z.clear()
+        cpu_z.clear()
+        torch.relu = card_relu
+        try:
+            state = card.fit([batch], state)
+        finally:
+            torch.relu = relu
+        torch.relu = cpu_relu
+        t0 = time.perf_counter()
+        try:
+            cpu_after = cpu.fit([batch], pre)
+        finally:
+            torch.relu = relu
+        cpu_s += time.perf_counter() - t0
+        after = _host_state(state)
+        n = i + 1
+        if not card_z or len(cpu_z) != len(card_z):
+            raise RuntimeError(f"step {n}: {len(card_z)} ReLUs on the card, "
+                               f"{len(cpu_z)} on the CPU")
+        flips = sum(int(((zc > 0) != (z > 0)).sum()) for zc, z in zip(card_z, cpu_z))
+        forward = max(float((z - zc).abs().max() / zc.square().mean().sqrt().clamp_min(1e-30))
+                      for zc, z in zip(card_z, cpu_z))
+        if forward > LOCKSTEP_RTOL:
+            raise RuntimeError(f"step {n}: the card's pre-activations differ from the "
+                               f"CPU's by {forward:.3e} of their rms")
+        diffs = {"mu": 0.0, "nu": 0.0, "params_vs_update": 0.0, "params_vs_cpu": 0.0,
+                 "pre_activations": forward, "relu_flips": flips}
+        lr = float(wsd_schedule(oc, torch.tensor(n, dtype=torch.int32)))
+        # the betas as the update holds them, in float32
+        bc1, bc2 = (1.0 - float(torch.tensor(b, dtype=torch.float32)) ** n
+                    for b in (oc.beta1, oc.beta2))
+        for k, p in pre["params"].items():
+            for m in ("mu", "nu"):
+                diffs[m] = max(diffs[m], _rel_diff(after["opt"][m][k], cpu_after["opt"][m][k]))
+            mu, nu, p64 = (after["opt"]["mu"][k].double(), after["opt"]["nu"][k].double(),
+                           p.double())
+            delta = (mu / bc1) / ((nu / bc2).sqrt() + oc.eps)
+            if p.dim() >= 2:
+                delta = delta + oc.weight_decay * p64
+            diffs["params_vs_update"] = max(diffs["params_vs_update"],
+                                            _rel_diff(after["params"][k], p64 - lr * delta))
+            diffs["params_vs_cpu"] = max(diffs["params_vs_cpu"],
+                                         _rel_diff(after["params"][k], cpu_after["params"][k]))
+        g_card, g_cpu = card.history[-1].grad_norm, cpu.history[-1].grad_norm
+        diffs["grad_norm"] = abs(g_card - g_cpu) / abs(g_cpu)
+        if int(after["opt"]["step"]) != n or int(cpu_after["opt"]["step"]) != n:
+            raise RuntimeError(f"step {n}: AdamW step {int(after['opt']['step'])} on the "
+                               f"card, {int(cpu_after['opt']['step'])} on the CPU")
+        if max(diffs["mu"], diffs["nu"], diffs["grad_norm"]) > LOCKSTEP_RTOL:
+            raise RuntimeError(f"step {n}: the card's dense gradients differ from the "
+                               f"CPU's: {diffs}")
+        if diffs["params_vs_update"] > UPDATE_RTOL:
+            raise RuntimeError(f"step {n}: the card's parameters are not the AdamW update "
+                               f"of its state: {diffs}")
+        worst = {k: v + diffs[k] if k == "relu_flips" else max(v, diffs[k])
+                 for k, v in worst.items()}
+    return ([m.loss for m in card.history], [m.loss for m in cpu.history], worst, cpu_s)
+
+
+def _train_run(torch, cfg, batches, tables, device, store_cls=None, profile=False):
+    """Train ``TRAIN_STEPS`` steps of the tiered-store DLRM on the recorded
+    batches; returns the trainer, its store, the wall seconds and (when
+    profiled) the profiler."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    trainer, store = _make_trainer(cfg, tables, device, store_cls)
     prof = (profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             if profile else None)
     if prof is not None:
@@ -588,7 +816,8 @@ def _train_run(torch, cfg, batches, tables, device, store_cls=None, profile=Fals
 
 def _train_path(torch):
     """The trainer path: serve the cut-vocab dlrm-paper session on the card,
-    train on its batches on the card and on the CPU, profile a third run;
+    train on its batches on the card, compare each step with the CPU from
+    the card's dense state, profile a third run;
     returns the main run's launch counts and the kernel operands of the
     profiled run's first fully-hot lookup."""
     import dataclasses
@@ -633,13 +862,24 @@ def _train_path(torch):
         "refreshed", "hot_rows")}
     del trainer, store
 
-    cpu_trainer, cpu_store, cpu_s, _ = _train_run(torch, cfg, batches, tables, "cpu")
-    cpu_losses = np.array([m.loss for m in cpu_trainer.history])
-    rel = np.abs(cpu_losses - gpu_losses) / np.abs(cpu_losses)
-    if not np.allclose(gpu_losses, cpu_losses, rtol=1e-4, atol=0):
-        raise RuntimeError(f"card losses {gpu_losses} vs CPU losses {cpu_losses}")
-    print(f"[train] card vs CPU loss: max rel diff {rel.max():.3e} (rtol 1e-4)", flush=True)
-    del cpu_trainer, cpu_store
+    step_losses, cpu_losses, state_diffs, cpu_s = _lockstep(torch, cfg, batches, tables)
+    step_losses, cpu_losses = np.array(step_losses), np.array(cpu_losses)
+    rel = np.abs(cpu_losses - step_losses) / np.abs(cpu_losses)
+    if not np.allclose(step_losses, cpu_losses, rtol=1e-4, atol=0):
+        raise RuntimeError(f"card losses {step_losses} vs CPU losses {cpu_losses}")
+    if not np.array_equal(step_losses, gpu_losses):
+        raise RuntimeError(f"the card's lockstep losses {step_losses} differ from its main "
+                           f"run's {gpu_losses}")
+    print(f"[train] card vs CPU, every step from the card's dense state: max rel loss "
+          f"diff {rel.max():.3e} (rtol 1e-4); worst per-leaf relative norm of the card's "
+          f"post-step state minus the CPU's: mu {state_diffs['mu']:.3e}, nu "
+          f"{state_diffs['nu']:.3e}, grad norm {state_diffs['grad_norm']:.3e} (limit "
+          f"{LOCKSTEP_RTOL:g}), params {state_diffs['params_vs_cpu']:.3e} (not held: AdamW "
+          f"amplifies rounding); card params vs the float64 AdamW update of its own state "
+          f"{state_diffs['params_vs_update']:.3e} (limit {UPDATE_RTOL:g}); pre-activations "
+          f"{state_diffs['pre_activations']:.3e} of their rms (limit {LOCKSTEP_RTOL:g}), "
+          f"{state_diffs['relu_flips']} ReLUs the CPU took from the card; CPU losses "
+          f"{cpu_losses.tolist()}; the card's losses equal its main run's", flush=True)
 
     class TimedStore(TieredEmbeddingStore):
         """Host seconds of the store's phases, and the operands of the first
@@ -670,14 +910,12 @@ def _train_path(torch):
 
     trainer, store, prof_s, prof = _train_run(torch, cfg, batches, tables, "cuda",
                                               store_cls=TimedStore, profile=True)
-    cuda = torch.autograd.DeviceType.CUDA
-    by_name = {}
-    for ev in prof.key_averages():
-        if ev.device_type == cuda and ev.self_device_time_total > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + ev.self_device_time_total
-    busy_s = sum(by_name.values()) / 1e6
-    copy_s = sum(v for k, v in by_name.items() if "memcpy" in k.lower()) / 1e6
-    bag_s = sum(v for k, v in by_name.items() if "embedding_bag" in k) / 1e6
+    by_name, _ = _device_by_name(torch, prof)
+    busy_s = copy_s = bag_s = None
+    if by_name:
+        busy_s = sum(by_name.values()) / 1e6
+        copy_s = sum(v for k, v in by_name.items() if "memcpy" in k.lower()) / 1e6
+        bag_s = sum(v for k, v in by_name.items() if "embedding_bag" in k) / 1e6
     step_s = sum(m.step_time_s for m in trainer.history)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(json.dumps({"train": {
@@ -687,14 +925,14 @@ def _train_path(torch):
         "card_s": gpu_s, "cpu_s": cpu_s, "profiled_card_s": prof_s,
         "card_steps_per_s": TRAIN_STEPS / gpu_s, "card_rows_per_s": TRAIN_STEPS * BATCH / gpu_s,
         "card_losses": gpu_losses.tolist(), "cpu_losses": cpu_losses.tolist(),
-        "max_rel_loss_diff": float(rel.max()),
+        "max_rel_loss_diff": float(rel.max()), "lockstep_state_rel_diff": state_diffs,
         "card_step_metrics": [dataclasses.asdict(m) for m in gpu_hist],
         "store_stats": stats, "hot_rate": gpu_hist[-1].hot_rate,
         "profiled_host_s": dict(store.seconds, embed_fetch=sum(
             m.embed_fetch_s for m in trainer.history), step_time=step_s,
             mlp_step=step_s - store.seconds["apply_sparse_update"]),
         "device_busy_s": busy_s, "device_copy_s": copy_s,
-        "device_embedding_bag_s": bag_s, "device_idle_share": 1 - busy_s / prof_s,
+        "device_embedding_bag_s": bag_s, "device_idle_share": _idle_share(busy_s, prof_s),
         "device_top_us": dict(top),
     }}), flush=True)
     operands = store.operands
@@ -744,9 +982,9 @@ def _bag_checks(torch, operands):
         replaces="src/repro/kernels/embedding_bag.py:40",
         shape=f"table {tuple(table.shape)} ids/mask {tuple(ids.shape)} "
               f"fully-hot bags {b} rows read {rows}",
-        max_abs_err=err, ms=_device_ms(torch, kernel), plain_ms=_device_ms(torch, plain, iters=10),
+        max_abs_err=err, ms=_queued_ms(torch, kernel), plain_ms=_queued_ms(torch, plain, iters=5),
         bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=_device_ms(torch, library), call_ms=_call_ms(torch, kernel),
+        library_ms=_queued_ms(torch, library), call_ms=_call_ms(torch, kernel),
         plain_call_ms=_call_ms(torch, plain, iters=20), library_call_ms=_call_ms(torch, library),
     )
     print(f"[kernel] embedding_bag {row['shape']}: bit-exact (mean and sum), "
@@ -755,6 +993,363 @@ def _bag_checks(torch, operands):
           f"(rows read {rows}) call_ms={row['call_ms']:.6f} plain_call_ms={row['plain_call_ms']:.6f} "
           f"library_call_ms={row['library_call_ms']:.6f}", flush=True)
     return row
+
+
+def _flash_close(got, want, v, dtype_name):
+    """The largest |got - want| in units of rms(v), and the largest share of
+    its per-element bound that an element uses: the sweep's bound is
+    tol * (1 + |want|) in those units, so within tolerance means a share
+    of at most 1."""
+    tol = FLASH_TOL[dtype_name]
+    scale = float(v.float().square().mean().sqrt())
+    diff = (got.float() - want.float()).abs() / scale
+    share = diff / (tol * (1 + want.float().abs() / scale))
+    return float(diff.max()), float(share.max())
+
+
+def _lm_serve_path(torch):
+    """Full-width qwen3-8b through the port's serve path on the card, with
+    the launch counts set to 0 just before and read just after; then a
+    profiled decode loop, the attention operands of layers 0 and 35 from
+    another prefill, and the full-width BatchingServer.  Returns the
+    launches, the captured operands and the path's numbers."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.qwen3_8b import CONFIG
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serving import BatchingServer, Request, ServerConfig
+
+    t = time.perf_counter()
+    model = build_model(CONFIG, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"[lm] {CONFIG.name}: {n_params} parameters ({param_bytes / 1e9:.3f} GB) drawn "
+          f"on the card in {time.perf_counter() - t:.2f} s", flush=True)
+    # a first call at the same shapes (cuBLAS handles, the kernel's set-up)
+    t = time.perf_counter()
+    serve.serve(model, batch=LM_BATCH, prompt_len=LM_PROMPT, decode_steps=2,
+                cache_len=LM_CACHE)
+    print(f"[lm] first call (prefill + 2 decode steps) {time.perf_counter() - t:.2f} s",
+          flush=True)
+
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.reset()
+    out = serve.serve(model, batch=LM_BATCH, prompt_len=LM_PROMPT, decode_steps=LM_DECODE,
+                      cache_len=LM_CACHE)
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[lm] main path launches {launches}", flush=True)
+    if launches.get("flash_attention", 0) != CONFIG.num_layers:
+        raise RuntimeError(f"the prefill launched flash_attention "
+                           f"{launches.get('flash_attention', 0)} times, expected "
+                           f"{CONFIG.num_layers}")
+    if not torch.isfinite(out["logits"].float()).all():
+        raise RuntimeError("non-finite logits")
+    tokens = out["tokens"]
+    if (tuple(tokens.shape) != (LM_BATCH, 1 + LM_DECODE) or int(tokens.min()) < 0
+            or int(tokens.max()) >= CONFIG.vocab_size):
+        raise RuntimeError(f"bad sampled tokens {tuple(tokens.shape)}")
+    print(f"[lm] serve: prefill_s={out['prefill_s']:.6f} decode_s={out['decode_s']:.6f} "
+          f"decode_tok_per_s={out['decode_tok_per_s']:.3f} peak device memory "
+          f"{peak / 1e9:.3f} GB, finite logits, sampled tokens[0] "
+          f"{tokens[0, :16].tolist()}", flush=True)
+
+    # the decode loop again under the profiler: the device's busy share
+    cache = model.init_cache(LM_BATCH, LM_CACHE)
+    token = tokens[:, :1].to("cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(LM_DECODE):
+            logits, cache = model.decode_step({"token": token, "pos": i, "cache": cache})
+            token = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        decode_wall = time.perf_counter() - t0
+    by_name, device_ops = _device_by_name(torch, prof)
+    busy = sum(by_name.values()) / 1e6 if by_name else None
+    launches_per_step = device_ops / LM_DECODE if by_name else None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[lm] profiled decode loop: {decode_wall:.6f} s wall, device busy "
+          f"{_fmt(busy, '.6f')} s, idle share {_fmt(_idle_share(busy, decode_wall), '.5f')}, "
+          f"{_fmt(launches_per_step, '.0f')} device kernels "
+          f"and copies a step (profile and summary "
+          f"{time.perf_counter() - t:.2f} s)", flush=True)
+    del cache, logits
+
+    # what one decode step must read: every weight but the token table, of
+    # which only B rows are read (the cache's few rows are left out)
+    tok_bytes = model.embed.tok.numel() * model.embed.tok.element_size()
+    step_bytes = param_bytes - tok_bytes + LM_BATCH * CONFIG.d_model * 2
+    decode_bound = LM_BATCH / (step_bytes / HBM_BYTES_PER_S)
+
+    # the attention operands of layers 0 and 35, from another prefill: the
+    # (B, H, S, D) views that blocked_attention hands to kernels.ops
+    captured = []
+    original = ops.flash_attention
+
+    def capture(q, k, v, **kw):
+        if len(captured) in LM_CAPTURE_LAYERS:
+            captured.append((q.clone(), k.clone(), v.clone()))
+        else:
+            captured.append(None)
+        return original(q, k, v, **kw)
+
+    ops.flash_attention = capture
+    t = time.perf_counter()
+    try:
+        serve.serve(model, batch=LM_BATCH, prompt_len=LM_PROMPT, decode_steps=0,
+                    cache_len=LM_CACHE)
+    finally:
+        ops.flash_attention = original
+    operands = {i: captured[i] for i in LM_CAPTURE_LAYERS}
+    print(f"[lm] operands of layers {LM_CAPTURE_LAYERS} captured in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    numbers = {
+        "config": CONFIG.name, "parameters": n_params, "param_bytes": param_bytes,
+        "batch": LM_BATCH, "prompt_len": LM_PROMPT, "decode_steps": LM_DECODE,
+        "cache_len": LM_CACHE, "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+        "decode_tok_per_s": out["decode_tok_per_s"],
+        "flash_attention_launches": launches.get("flash_attention", 0),
+        "peak_device_bytes": peak, "profiled_decode_s": decode_wall,
+        "decode_device_busy_s": busy, "decode_device_idle_share": _idle_share(busy, decode_wall),
+        "decode_step_bytes": step_bytes, "decode_bound_tok_per_s": decode_bound,
+        "decode_device_top_us": {k[:80]: v for k, v in top},
+        "decode_device_ops_per_step": launches_per_step,
+        "sampled_tokens_0": tokens[0, :16].tolist(),
+    }
+    del captured, model, out
+    torch.cuda.empty_cache()
+
+    # the full-width BatchingServer: 4 slots, 4 requests
+    t = time.perf_counter()
+    server = BatchingServer(CONFIG, ServerConfig(slots=4, cache_len=LM_CACHE), seed=0,
+                            device="cuda")
+    print(f"[lm] BatchingServer built in {time.perf_counter() - t:.2f} s", flush=True)
+    rng = np.random.default_rng(1)
+    for rid in range(4):
+        server.submit(Request(rid=rid, prompt=rng.integers(0, CONFIG.vocab_size, 16)
+                              .astype(np.int32), max_new_tokens=8))
+    t0 = time.perf_counter()
+    done = server.run()
+    server_s = time.perf_counter() - t0
+    if len(done) != 4 or any(len(r.output) != 8 for r in done) or any(
+            not 0 <= tok < CONFIG.vocab_size for r in done for tok in r.output):
+        raise RuntimeError(f"BatchingServer finished {[len(r.output) for r in done]}")
+    report = BatchingServer.latency_report(done)
+    print(f"[lm] BatchingServer: 4 requests in {server_s:.3f} s, latency_report "
+          f"{json.dumps(report)}", flush=True)
+    numbers["server"] = {"slots": 4, "requests": 4, "prompt_len": 16, "new_tokens": 8,
+                         "run_s": server_s, "latency_report": report,
+                         "outputs": {r.rid: r.output for r in done}}
+    del server
+    torch.cuda.empty_cache()
+    return launches, operands, numbers
+
+
+def _flash_checks(torch, operands, launches):
+    """``flash_attention`` at the main path's operands (layers 0 and 35):
+    in bf16 as the path runs it, within the sweep's bf16 tolerance of the
+    bf16 and the float32 plain versions; and on the same operands cast to
+    float32 (same shapes and strides), within the sweep's float32
+    tolerance of the float32 plain version, which holds the masking,
+    tiling and GQA indexing at main-path sizes to 2e-5.  Then times of
+    kernel, plain version and ``F.scaled_dot_product_attention`` beside
+    the bound (layer 0's operands)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+
+    worst = 0.0
+    for layer, (q, k, v) in sorted(operands.items()):
+        got = kflash.flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention(q, k, v)
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        got32 = kflash.flash_attention(q32, k32, v32, causal=True)
+        want32 = ref.flash_attention(q32, k32, v32)
+        torch.cuda.synchronize()
+        err, share = _flash_close(got, want, v, "bfloat16")
+        err_f, share_f = _flash_close(got, want32, v, "bfloat16")
+        err32, share32 = _flash_close(got32, want32, v32, "float32")
+        del got32, want32
+        if max(share, share_f, share32) > 1:
+            raise RuntimeError(f"flash_attention: layer {layer}'s operands: bf16 {err:.3e} "
+                               f"(plain bf16), {err_f:.3e} (plain f32), float32 {err32:.3e} "
+                               f"of rms(v); shares of the bound {share:.3f}, {share_f:.3f}, "
+                               f"{share32:.3f}")
+        worst = max(worst, err)
+        print(f"[kernel] flash_attention layer {layer} q {tuple(q.shape)} k "
+              f"{tuple(k.shape)} strides {q.stride()}: bf16 max |kernel - plain| "
+              f"{err:.3e} rms(v) (bf16 plain), {err_f:.3e} (f32 plain), largest share of "
+              f"the per-element bound {FLASH_TOL['bfloat16']:g}*(1 + |want|/rms(v)) "
+              f"{share:.3f} and {share_f:.3f}; float32 kernel vs float32 plain {err32:.3e} "
+              f"rms(v), share of {FLASH_TOL['float32']:g}*(1 + |want|/rms(v)) {share32:.3f}; "
+              f"rms(v) {float(v.float().square().mean().sqrt()):.4f}", flush=True)
+
+    q, k, v = operands[LM_CAPTURE_LAYERS[0]]
+    b, h, s, d = q.shape
+    t = k.shape[2]
+    kernel = lambda: kflash.flash_attention(q, k, v, causal=True)
+    plain = lambda: ref.flash_attention(q, k, v)
+    library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    lib_err, lib_share = _flash_close(library(), plain(), v, "bfloat16")
+    if lib_share > 1:
+        raise RuntimeError(f"SDPA disagrees with the plain version: {lib_err:.3e} rms(v)")
+    # bytes: q, k, v read once and out written once; operations: 2 products
+    # of 2*D flops for each (query, key) pair the causal mask keeps
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) + q.numel() * q.element_size()
+    pairs = b * h * sum(min(i + 1, t) for i in range(s))
+    flops = 4 * d * pairs
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    # device times from CUDA events around calls queued behind a sleep:
+    # after the profiled decode loop, torch.profiler's sums for these calls
+    # came out below the float32 FMA floor of the kernel's work, or empty
+    row = dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:62",
+        shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} {str(q.dtype).split('.')[-1]} causal "
+              f"(layer {LM_CAPTURE_LAYERS[0]} of the qwen3-8b prefill)",
+        launches=launches["flash_attention"], max_abs_err=worst,
+        ms=_queued_ms(torch, kernel), plain_ms=_queued_ms(torch, plain, iters=5),
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=_queued_ms(torch, library),
+        call_ms=_call_ms(torch, kernel, iters=20), plain_call_ms=_call_ms(torch, plain, iters=5),
+        library_call_ms=_call_ms(torch, library, iters=20),
+    )
+    print(f"[kernel] flash_attention {row['shape']}: kernel_ms={row['ms']:.6f} "
+          f"plain_ms={row['plain_ms']:.6f} library_ms={row['library_ms']:.6f} "
+          f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}: {flops} flops, {nbytes} bytes) "
+          f"call_ms={row['call_ms']:.6f} plain_call_ms={row['plain_call_ms']:.6f} "
+          f"library_call_ms={row['library_call_ms']:.6f}", flush=True)
+    return row
+
+
+def _flash_adversarial_checks(torch) -> None:
+    """``flash_attention`` against its plain version on inputs the main
+    path never makes: S of 1, 63, 65 and 1000, T != S (full attention),
+    head dims 32, 48 (padded to 64), 64 and 128, GQA groups 1 and 4, both
+    types; and scores of |s| ~ 1e4 from integer q and k at D=64 (every
+    score exact in float32), one case with a key ramp that moves each
+    row's running max at every key tile.  bf16 results are held to the
+    float32 plain version on the same operands as well."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def check(name, q, k, v, causal):
+        dtype = str(q.dtype).split(".")[-1]
+        got = kflash.flash_attention(q, k, v, causal=causal)
+        want32 = ref.flash_attention(q.float(), k.float(), v.float(), causal=causal)
+        wants = [("f32 plain", want32)]
+        if name != "large":       # the bf16 plain version rounds |s| ~ 1e4 scores to bf16
+            wants.append(("plain", ref.flash_attention(q, k, v, causal=causal)))
+        torch.cuda.synchronize()
+        for label, want in wants:
+            err, share = _flash_close(got, want, v, dtype)
+            if share > 1:
+                raise RuntimeError(f"flash_attention {name} {tuple(q.shape)} k "
+                                   f"{tuple(k.shape)} {dtype} causal={causal}: {err:.3e} "
+                                   f"rms(v) from the {label} version")
+
+    shapes = ((1, 2, 2, 1, 1, 32, True), (2, 4, 1, 63, 63, 64, True),
+              (2, 8, 2, 65, 65, 128, True), (1, 4, 4, 1000, 1000, 128, True),
+              (2, 8, 2, 65, 100, 128, False), (2, 4, 4, 1, 300, 64, False),
+              (3, 4, 1, 130, 77, 48, False), (1, 4, 1, 200, 130, 32, True))
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, kvh, s, t, d, causal in shapes:
+            q = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((b, kvh, t, d), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((b, kvh, t, d), generator=gen, device="cuda").to(dtype)
+            check("normal", q, k, v, causal)
+        # large scores: integers in [-128, 128] are exact in bf16, every dot
+        # (< 2^24) exact in float32, and the scale 1/8 exact at D=64
+        q = torch.randint(-128, 129, (2, 4, 200, 64), generator=gen, device="cuda")
+        k = torch.randint(-128, 129, (2, 2, 200, 64), generator=gen, device="cuda")
+        v = torch.randn((2, 2, 200, 64), generator=gen, device="cuda")
+        s_max = float((q.float() @ k.float().repeat_interleave(2, 1).transpose(-1, -2)).abs()
+                      .max()) / 8
+        check("large", q.to(dtype), k.to(dtype), v.to(dtype), True)
+        check("large", q.to(dtype), k.to(dtype), v.to(dtype), False)
+        # a ramp: row i's largest score is at key i, so the running max moves
+        # at every key tile; scores up to 16 * 64 * 125 / 8 = 16000
+        ramp = (torch.arange(1000, device="cuda") // 8).clamp(max=125)
+        q = torch.full((1, 2, 1000, 64), 16.0, device="cuda")
+        k = ramp[None, None, :, None].expand(1, 2, 1000, 64).float()
+        v = torch.randn((1, 2, 1000, 64), generator=gen, device="cuda")
+        check("large", q.to(dtype), k.to(dtype), v.to(dtype), True)
+    print(f"[adversarial] flash_attention S in (1, 63, 65, 130, 200, 1000), T != S, D in "
+          f"(32, 48, 64, 128), groups 1/2/4, f32 and bf16, |s| up to {s_max:.0f} and a "
+          f"ramp to 16000: within tolerance", flush=True)
+
+
+def _lm_card_vs_cpu(torch):
+    """A depth-2, full-width qwen3-8b from one set of weights (drawn on the
+    card from seed 1) on the card and on the CPU: prefill of 2 prompts of
+    64 tokens, then 4 greedy decode steps.  Every greedy token equal in
+    both types; float32 logits within rtol = atol = 1e-3, bf16 logits
+    each within 10% of their rms (the CPU tests' bound against the
+    reference)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.qwen3_8b import CONFIG
+    from repro_torch.models import build_model
+
+    rng = np.random.default_rng(2)
+    prompt = torch.from_numpy(rng.integers(0, CONFIG.vocab_size, (2, 64)).astype(np.int32))
+    result = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        cfg = dataclasses.replace(CONFIG, num_layers=2, param_dtype=dtype, compute_dtype=dtype)
+        card = build_model(cfg, device="cuda").init(1)
+        cpu = build_model(cfg, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        runs = {}
+        for dev, model in (("cuda", card), ("cpu", cpu)):
+            t0 = time.perf_counter()
+            logits, _ = model.prefill({"tokens": prompt})
+            steps = [logits.float().cpu()]
+            cache = model.init_cache(2, 16)
+            token = torch.argmax(logits, dim=-1).to(torch.int32)
+            toks = [token.cpu()]
+            for pos in range(4):
+                logits, cache = model.decode_step({"token": token, "pos": pos, "cache": cache})
+                steps.append(logits.float().cpu())
+                token = torch.argmax(logits, dim=-1).to(torch.int32)
+                toks.append(token.cpu())
+            runs[dev] = (steps, torch.cat(toks, dim=1), time.perf_counter() - t0)
+            del cache, logits
+        del card, cpu
+        torch.cuda.empty_cache()
+        (g_steps, g_toks, g_s), (c_steps, c_toks, c_s) = runs["cuda"], runs["cpu"]
+        errs = [float((g - c).abs().max()) for g, c in zip(g_steps, c_steps)]
+        rel = [e / float(c.square().mean().sqrt()) for e, c in zip(errs, c_steps)]
+        same = bool(torch.equal(g_toks, c_toks))
+        if name == "float32":
+            if not all(torch.allclose(g, c, rtol=1e-3, atol=1e-3)
+                       for g, c in zip(g_steps, c_steps)):
+                raise RuntimeError(f"card vs CPU float32 logits differ by up to {max(errs)}")
+        elif max(rel) > 0.1:
+            raise RuntimeError(f"card vs CPU bf16 logits differ by {max(rel):.3f} of their rms")
+        if not same:
+            raise RuntimeError(f"card vs CPU {name} greedy tokens differ: {g_toks.tolist()} "
+                               f"vs {c_toks.tolist()}")
+        result[name] = {"max_abs_logit_diff": errs, "max_diff_over_rms": rel,
+                        "greedy_tokens_equal": same, "card_tokens": g_toks.tolist(),
+                        "cpu_tokens": c_toks.tolist(), "card_s": g_s, "cpu_s": c_s}
+        print(f"[lm] card vs CPU, depth 2 full width, {name}: max |logit diff| per call "
+              f"{['%.3e' % e for e in errs]} ({['%.3e' % r for r in rel]} of rms), greedy "
+              f"tokens equal: {same}; card {g_s:.2f} s, CPU {c_s:.2f} s", flush=True)
+    return result
 
 
 def main() -> int:
@@ -767,6 +1362,9 @@ def main() -> int:
     build.build(verbose=True)
     build.library()
     print(f"[build] {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    _warm_profiler(torch)
+    print(f"[profiler] first session {time.perf_counter() - t:.1f} s", flush=True)
 
     t = time.perf_counter()
     operands, waves = _capture_operands(torch)
@@ -812,7 +1410,7 @@ def main() -> int:
     print(json.dumps({"serve": {
         "batches": len(batches), "rows": n_rows, "serve_s": serve,
         "profiled_torch_serve_s": prof_serve_s, "device_busy_s": device_s,
-        "device_idle_share": 1 - device_s / prof_serve_s,
+        "device_idle_share": _idle_share(device_s, prof_serve_s),
     }}), flush=True)
 
     for r in results:
@@ -827,6 +1425,20 @@ def main() -> int:
     bag["launches"] = train_launches["embedding_bag"]
     results.append(bag)
     print(f"[phase] embedding_bag checks {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = time.perf_counter()
+    lm_launches, lm_operands, lm = _lm_serve_path(torch)
+    print(f"[phase] LM serving path {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    results.append(_flash_checks(torch, lm_operands, lm_launches))
+    del lm_operands
+    torch.cuda.empty_cache()
+    _flash_adversarial_checks(torch)
+    print(f"[phase] flash_attention checks {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    lm["card_vs_cpu"] = _lm_card_vs_cpu(torch)
+    print(json.dumps({"lm": lm}), flush=True)
+    print(f"[phase] LM card vs CPU {time.perf_counter() - t:.1f} s", flush=True)
     print(f"[phase] total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": results}))
     print(card)

@@ -2,16 +2,17 @@
 
 Each architecture module defines ``CONFIG`` (the exact public config) and
 ``SMOKE`` (a reduced same-family config for CPU tests), as the reference's
-``repro.configs`` does.  Only ``dlrm-paper`` is ported so far.
+``repro.configs`` does.  Ported so far: ``dlrm-paper`` and the dense GQA
+``qwen3-8b``.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Any
 
-ARCH_IDS = ["dlrm-paper"]
+ARCH_IDS = ["qwen3-8b", "dlrm-paper"]
 
-_MODULES = {"dlrm-paper": "dlrm_paper"}
+_MODULES = {"qwen3-8b": "qwen3_8b", "dlrm-paper": "dlrm_paper"}
 
 
 def _module(arch: str):

@@ -11,6 +11,13 @@ reference holds them as nested dicts, ``{"bottom": {"w0", "b0", ...},
 dout) applied as ``x @ w + b``.  The port keeps that layout (its MLP
 layers are not ``nn.Linear``), so nothing is transposed: a nested key
 becomes the port's parameter name ``"bottom.w0"``.
+
+An LM's weights in the reference are one tree whose layer leaves are
+stacked on a leading layer axis: ``embed.{tok,out}``, ``layers.{ln1, ln2,
+attn.{wq, wk, wv, wo, q_norm, k_norm}, ffn.{wi_gate, wi_up, wo}}`` and
+``ln_f``.  The port's ``DecoderLM`` holds one module per layer, so layer
+i's leaf ``layers.attn.wq[i]`` is its parameter ``layers.{i}.attn.wq``.
+bfloat16 leaves cross through their bits, so they come across exact.
 """
 from __future__ import annotations
 
@@ -59,14 +66,16 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _nest(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Dotted names -> a nested tree of numpy leaves (tensors converted)."""
     out: Dict[str, Any] = {}
     for name in sorted(flat):
         *path, leaf = name.split(".")
         node = out
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = flat[name].detach().cpu().numpy()
+        v = flat[name]
+        node[leaf] = _array(v) if isinstance(v, torch.Tensor) else v
     return out
 
 
@@ -100,3 +109,58 @@ def adamw_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
         "nu": _nest(state["nu"]),
         "step": np.asarray(int(state["step"]), np.int32),
     }
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy leaf as a CPU tensor of the same dtype; bfloat16 (numpy's
+    ``ml_dtypes`` type) through its bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes           # numpy's bfloat16; installed beside the reference
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def lm_params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The reference's ``DecoderLM`` parameter tree (numpy leaves, layers
+    stacked on axis 0) -> the port's ``DecoderLM`` state dict (CPU
+    tensors of the leaves' dtypes), for ``model.load_state_dict``."""
+    out = {}
+    for name, leaf in _flatten(tree).items():
+        if name.startswith("layers."):
+            rest = name[len("layers."):]
+            for i in range(leaf.shape[0]):
+                out[f"layers.{i}.{rest}"] = _tensor(leaf[i])
+        else:
+            out[name] = _tensor(leaf)
+    return out
+
+
+def lm_params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
+    """Inverse of ``lm_params_from_numpy``: the reference's nested tree of
+    a port ``DecoderLM``, its layers stacked again."""
+    flat: Dict[str, Any] = {}
+    per_layer: Dict[str, Dict[int, np.ndarray]] = {}
+    for name, p in model.state_dict().items():
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            per_layer.setdefault(rest, {})[int(i)] = _array(p)
+        else:
+            flat[name] = p
+    for rest, leaves in per_layer.items():
+        flat[f"layers.{rest}"] = np.stack([leaves[i] for i in sorted(leaves)])
+    return _nest(flat)
+
+
+def lm_cache_from_numpy(cache: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The reference's stacked KV cache ``{"k", "v"}`` of (L, B, S, KVH, D)
+    -> the port's, CPU tensors of the same dtype."""
+    return {name: _tensor(np.asarray(a)) for name, a in cache.items()}

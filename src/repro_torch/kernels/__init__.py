@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
 ``ops`` dispatches by device: CPU tensors run ``ref``, CUDA tensors launch
-the kernels of ``decode``, ``fused_transform`` and ``embedding_bag`` (built
-by ``build``).
+the kernels of ``decode``, ``fused_transform``, ``embedding_bag`` and
+``flash_attention`` (built by ``build``).
 """

@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 # C signatures: every pointer (and the stream) is a c_void_p, so ctypes
 # never cuts a 64-bit address to a 32-bit int
 SIGNATURES = {
@@ -46,6 +47,11 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _P,
     ),
     "embedding_bag_launch": (_P, _P, _P, _P, _I64, _I32, _I64, _I32, _I32, _P),
+    "flash_attention_launch": (
+        _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
+        _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+        _I32, _F32, _I32, _P,
+    ),
 }
 
 _lock = threading.Lock()

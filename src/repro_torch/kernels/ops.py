@@ -2,8 +2,8 @@
 
 A CPU tensor runs the plain PyTorch version (``repro_torch.kernels.ref``);
 a CUDA tensor launches the hand-written kernel (``kernels.decode``,
-``kernels.fused_transform``, ``kernels.embedding_bag``), which raises on
-anything it cannot take.
+``kernels.fused_transform``, ``kernels.embedding_bag``,
+``kernels.flash_attention``), which raises on anything it cannot take.
 There is no fallback from a CUDA tensor to the plain version.
 """
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import decode as _decode
 from repro_torch.kernels import embedding_bag as _embag
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_transform as _ft
 from repro_torch.kernels import ref
 
@@ -66,3 +67,14 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor, *,
     if _on_cpu(table):
         return ref.embedding_bag(table, ids, mask, mode=mode)
     return _embag.embedding_bag(table, ids, mask, mode=mode)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over (B, H, S, D) q and (B, KVH, T, D) k, v -> (B, H, S, D):
+    the dense plain version on a CPU tensor, the blocked online-softmax
+    kernel on a CUDA tensor (any strides, read in place).  The score
+    scale defaults to 1/sqrt(D)."""
+    if _on_cpu(q):
+        return ref.flash_attention(q, k, v, causal=causal, scale=scale)
+    return _flash.flash_attention(q, k, v, causal=causal, scale=scale)

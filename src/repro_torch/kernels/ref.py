@@ -20,6 +20,7 @@ Integer hazards of torch (2.x) that shape the code:
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -175,8 +176,8 @@ def dense_unpack(bitmap_words: torch.Tensor, values: torch.Tensor) -> torch.Tens
     rank = torch.cumsum(bits, dim=1) - 1
     idx = rank.clamp(0, values.shape[1] - 1)
     gathered = torch.gather(values, 1, idx)
-    nan = torch.tensor(NAN_BITS, dtype=torch.int32, device=values.device)
-    return torch.where(bits == 1, gathered, nan)
+    # a fill on the device, not a host-to-device copy of the constant
+    return torch.where(bits == 1, gathered, torch.full_like(gathered, NAN_BITS))
 
 
 def ragged_gather(src: torch.Tensor, idx: torch.Tensor,
@@ -212,3 +213,32 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
     if mode == "mean":
         out = out / torch.maximum(denom, torch.ones_like(denom))
     return out
+
+
+MASK_VALUE = -2.0e38          # masked scores: the TPU kernel's NEG_INF, not -inf
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
+    """Dense attention, the reference's ``ref.flash_attention``: q (B, H,
+    S, D), k and v (B, KVH, T, D) with H % KVH == 0 (query head h reads KV
+    head h // (H/KVH), expanded by ``repeat_interleave``) -> (B, H, S, D).
+    Scores ``q.k`` in the inputs' type, then float32 divided by sqrt(D)
+    (or times ``scale`` when one is given);
+    causal masking (positions from 0) at -2e38; float32 softmax cast to
+    the inputs' type before P.V."""
+    d = q.shape[-1]
+    g = q.shape[1] // k.shape[1]
+    if g > 1:
+        k = k.repeat_interleave(g, dim=1)
+        v = v.repeat_interleave(g, dim=1)
+    # sqrt(D) correctly rounded to float32, as jnp.sqrt(d) gives it; a
+    # Python scalar, so no host-to-device copy
+    sc = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32)
+    sc = sc / math.sqrt(d) if scale is None else sc * scale
+    if causal:
+        s, t = q.shape[2], k.shape[2]
+        pos = torch.arange(max(s, t), device=q.device)
+        sc = torch.where(pos[:s, None] >= pos[None, :t], sc, MASK_VALUE)
+    p = torch.softmax(sc, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)

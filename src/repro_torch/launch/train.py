@@ -102,7 +102,8 @@ def dlrm_dpp_batches(
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dlrm-paper", choices=cfglib.ARCH_IDS)
+    ap.add_argument("--arch", default="dlrm-paper", choices=["dlrm-paper"],
+                    help="the port trains DLRM only; LM training is not ported")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--smoke", action="store_true", help="use the reduced config")

@@ -32,6 +32,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "raced: run the test under the lockset race detector")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (a CUDA kernel has no CPU mode); skips "
+        "without one")
 
 
 @pytest.fixture
