@@ -15,7 +15,9 @@
    zeros, subnormals, extreme parameters, both tile layouts, long bitmaps,
    every byte shift; for ``embedding_bag`` empty bags, duplicate ids, the
    last row, fractional weights, odd L and E, NaN/inf rows under a mask of
-   0, subnormal rows, a table of more than 2^31 elements).
+   0, subnormal rows, a table of more than 2^31 elements).  Then the
+   standalone ``sigrid_hash`` and ``bucketize`` (no path launches them)
+   bit-exact at one batch's tiles and on adversarial inputs, and timed.
 4. The serving path: serves every batch of the full-width ``dlrm-paper``
    DPP session through ``dlrm_dpp_batches(CONFIG, 512, device="cuda")``
    with the launch counts set to 0 just before, checks that every data
@@ -62,10 +64,24 @@
    ``F.scaled_dot_product_attention`` beside the bound.  Then a depth-2,
    full-width model from one set of weights on the card and on the CPU:
    logits within tolerance and greedy tokens equal, in float32 and bf16.
-8. Prints one JSON line with every kernel's numbers, the card's line, and
-   last the result line ``{"ok": true, "device": {...}}``.
+8. The SSM serving path (``_ssm_serve_path``): with the launch counts set
+   to 0, serves the full-width ``mamba2-2.7b`` (64 layers, d_model 2560,
+   80 heads, d_state 128, bf16, seed 0) through the same ``serve`` (batch
+   4, prompt 1024 = 4 chunks, 32 decode steps); checks that
+   ``ssd_chunk_forward`` launched once per layer (64) and nothing else,
+   and that the logits are finite; prints ``prefill_s``,
+   ``decode_tok_per_s``, peak memory, the bounds, and a profiled 4-step
+   decode window; then a 4-slot ``BatchingServer``.  ``ssd_chunk_forward``
+   against its plain version (the sequential float32 recurrence) at the
+   scan operands of layers 0 and 63 (bf16 and float32, y and the final
+   state) and on adversarial inputs (S from 1 to 1000 with ragged chunks,
+   1-8 groups, P and N of 16-128, |cs| to 1e4, A = 0, an initial state),
+   timed beside its bound.  Then a depth-2, full-width model from one set
+   of weights on the card and on the CPU (prompt 512).
+9. Prints one JSON line with every kernel's numbers (nine), the card's
+   line, and last the result line ``{"ok": true, "device": {...}}``.
 
-The device's busy time and idle share in steps 4-6 come from
+The device's busy time and idle share in steps 4-6 and 8 come from
 torch.profiler; where it records no device activity they print as not
 measured (null in the JSON), and nothing else depends on it.
 
@@ -78,6 +94,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -108,6 +125,16 @@ LM_CAPTURE_LAYERS = (0, 35)
 # operands.  Attention is linear in v, so on operands whose v has another
 # scale the same bound applies to out / rms(v).
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the SSM serving path: mamba2-2.7b at full width, the same serve flags
+SSM_CAPTURE_LAYERS = (0, 63)
+# ssd_chunk_forward against its plain version (the sequential float32
+# recurrence), per element within atol * rms(want) + rtol * |want|: float32
+# the reference's own SSD sweep (tests/test_kernels.py: atol 5e-4, rtol
+# 1e-3 against its sequential oracle), applied in units of rms(want); bf16
+# 2e-2 of both, as the flash_attention sweep's bf16 bound (the kernel
+# rounds m to bf16 before m.x, 2^-9 relative a term, and y to bf16).  The
+# final state is float32 in both types and held to the float32 bound.
+SSD_TOL = {"float32": (5e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}
 
 
 def _setup():
@@ -1352,6 +1379,590 @@ def _lm_card_vs_cpu(torch):
     return result
 
 
+def _standalone_checks(torch, operands):
+    """``sigrid_hash`` and ``bucketize`` at one ``dlrm-paper`` batch's shapes:
+    the (512, 1344) sparse id tile (42 tables x 32 ids, ids drawn over the
+    whole int32 range from a seed, max_value 2,000,000) and the (512, 504)
+    dense tile that ``dense_unpack`` gives for the first stripe (NaN where
+    a value is absent) with the reference's 63 bucketize borders.  Each
+    bit-exact against its plain version; times of kernel, plain version
+    and, for ``bucketize``, ``torch.bucketize`` (which agrees where v is
+    not NaN: a search puts NaN past the last border, the count gives 0).
+    No path of the port launches either kernel (launches 0)."""
+    import numpy as np
+
+    from repro_torch.configs.dlrm_paper import CONFIG
+    from repro_torch.kernels import bucketize as kbucketize
+    from repro_torch.kernels import decode as kdecode
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sigrid_hash as ksigrid
+
+    rng = np.random.default_rng(21)
+    ids = torch.from_numpy(rng.integers(-(2 ** 31), 2 ** 31, (
+        BATCH, CONFIG.num_tables * CONFIG.max_ids_per_feature), dtype=np.int64)
+        .astype(np.int32)).cuda()
+    salt, max_value = 1, CONFIG.vocab_per_table
+    bm, vals = operands["dense_unpack"]
+    dense = kdecode.dense_unpack(bm, vals).view(torch.float32).T.contiguous()
+    borders = torch.linspace(-3, 3, 63, dtype=torch.float64).float().cuda()
+    cases = [
+        dict(name="sigrid_hash", source="src/repro_torch/csrc/sigrid_hash.cu",
+             replaces="src/repro/kernels/sigrid_hash.py:34",
+             kernel=lambda: ksigrid.sigrid_hash(ids, salt, max_value),
+             plain=lambda: ref.sigrid_hash(ids, salt, max_value), library=None,
+             bytes=8 * ids.numel(), ops=12 * ids.numel(),
+             shape=f"ids {tuple(ids.shape)} max_value {max_value}"),
+        dict(name="bucketize", source="src/repro_torch/csrc/bucketize.cu",
+             replaces="src/repro/kernels/bucketize.py:30",
+             kernel=lambda: kbucketize.bucketize(dense, borders),
+             plain=lambda: ref.bucketize(dense, borders),
+             library=lambda: torch.bucketize(dense, borders, out_int32=True),
+             bytes=8 * dense.numel() + 4 * borders.numel(),
+             ops=dense.numel() * borders.numel(),
+             shape=f"values {tuple(dense.shape)} borders {borders.numel()} "
+                   f"(NaN {int(torch.isnan(dense).sum())})"),
+    ]
+    rows = []
+    for c in cases:
+        got, want = c["kernel"](), c["plain"]()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+            raise RuntimeError(f"{c['name']}: kernel disagrees with its plain version")
+        if c["library"] is not None:
+            ok = ~torch.isnan(dense)
+            if not torch.equal(c["library"]()[ok], want[ok]):
+                raise RuntimeError(f"{c['name']}: library call disagrees with the plain version")
+        ms = _queued_ms(torch, c["kernel"])
+        plain_ms = _queued_ms(torch, c["plain"], iters=5)
+        library_ms = _queued_ms(torch, c["library"]) if c["library"] else None
+        bytes_ms = c["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = c["ops"] / FP32_OPS_PER_S * 1e3
+        row = dict(
+            name=c["name"], shape=c["shape"], route="cuda", source=c["source"],
+            replaces=c["replaces"], launches=0, max_abs_err=0, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=library_ms, call_ms=_call_ms(torch, c["kernel"]),
+            plain_call_ms=_call_ms(torch, c["plain"], iters=20),
+            library_call_ms=_call_ms(torch, c["library"]) if c["library"] else None,
+        )
+        rows.append(row)
+        print(f"[kernel] {c['name']} {c['shape']}: bit-exact, kernel_ms={ms:.6f} "
+              f"plain_ms={plain_ms:.6f} library_ms={library_ms} "
+              f"bound_ms={row['bound_ms']:.6f} call_ms={row['call_ms']:.6f} "
+              f"plain_call_ms={row['plain_call_ms']:.6f} "
+              f"library_call_ms={row['library_call_ms']}", flush=True)
+    return rows
+
+
+def _standalone_adversarial_checks(torch) -> None:
+    """``sigrid_hash`` and ``bucketize`` bit-exact on inputs the data path
+    never makes: INT_MIN, -1 and 0 ids, salts 0 and 2^32-1, max_value 1,
+    2^31-1, 2^31+5 and 2^32-1 (remainders above INT_MAX wrap negative),
+    odd and unaligned tiles; NaN, infinite, subnormal and signed-zero values
+    tied with borders, NaN and unsorted borders, 0, 1 and 1000 borders."""
+    import numpy as np
+
+    from repro_torch.kernels import bucketize as kbucketize
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sigrid_hash as ksigrid
+
+    rng = np.random.default_rng(22)
+    ids = torch.from_numpy(rng.integers(-(2 ** 31), 2 ** 31, 70_001, dtype=np.int64)
+                           .astype(np.int32)).cuda()
+    ids[:4] = torch.tensor([-(2 ** 31), -1, 0, 2 ** 31 - 1], dtype=torch.int32)
+    negative = False
+    for t in (ids, ids[1:], ids[:70_000].view(350, 200), ids[:1]):
+        for salt in (0, 2 ** 32 - 1):
+            for mv in (1, 2 ** 31 - 1, 2 ** 31 + 5, 2 ** 32 - 1):
+                got = ksigrid.sigrid_hash(t, salt, mv)
+                if not torch.equal(got, ref.sigrid_hash(t, salt, mv)):
+                    raise RuntimeError(f"sigrid_hash {tuple(t.shape)} salt {salt} "
+                                       f"max_value {mv} differs")
+                negative |= bool((got < 0).any())
+    if not negative:
+        raise RuntimeError("sigrid_hash: no remainder above INT_MAX wrapped negative")
+    print("[adversarial] sigrid_hash INT_MIN/-1/0, salts 0 and 2^32-1, max_value 1, "
+          "2^31-1, 2^31+5, 2^32-1, unaligned and odd tiles: bit-exact", flush=True)
+
+    v = torch.from_numpy((rng.standard_normal(50_001) * 3).astype(np.float32)).cuda()
+    v[:9] = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1e-40,
+                          -1e-40, 1.0, -1.0])
+    borders = {
+        "none": torch.zeros(0), "one": torch.tensor([0.0]),
+        "signed zeros": torch.tensor([-0.0, 0.0, 1e-40, 1.0]),
+        "NaN": torch.tensor([-1.0, float("nan"), 0.5, float("nan")]),
+        "unsorted": torch.tensor([2.0, -1.0, 0.0, -float("inf"), float("inf"), 0.5]),
+        "1000": torch.from_numpy(np.sort(rng.standard_normal(1000).astype(np.float32))),
+    }
+    for name, bd in borders.items():
+        bd = bd.cuda()
+        for t in (v, v[1:], v[:50_000].view(100, 500)):
+            if not torch.equal(kbucketize.bucketize(t, bd), ref.bucketize(t, bd)):
+                raise RuntimeError(f"bucketize {name} borders {tuple(t.shape)} differs")
+    print("[adversarial] bucketize NaN/inf/subnormal/signed-zero values; no, one, "
+          "signed-zero, NaN, unsorted and 1000 borders: bit-exact", flush=True)
+
+
+def _ssd_bound(x, b_, chunk):
+    """The least time of one SSD launch: bytes (x, dt, A, B, C read once,
+    y and the (B, H, P, N) float32 state written once) at 3.35 TB/s against
+    the operations of the chunked form with the causal half of each
+    chunk's Q x Q products only (C.B^T and m.x over the lower triangle,
+    C.state and the state update in full) at the bf16 tensor peak.
+    Returns (ms, bound_by, flops, bytes)."""
+    bsz, s, h, p = x.shape
+    n = b_.shape[3]
+    flops = 0
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)
+        flops += q * (q + 1) // 2 * 2 * (n + p) + 4 * q * n * p
+    flops *= bsz * h
+    nbytes = (2 * x.numel() * x.element_size() + 2 * b_.numel() * b_.element_size()
+              + 4 * bsz * s * h + 4 * h + 4 * bsz * h * p * n)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), flops, nbytes
+
+
+def _ssd_close(got, want, tol):
+    """The largest |got - want| in units of rms(want), and the largest share
+    of its per-element bound ``atol * rms(want) + rtol * |want|`` that an
+    element uses (within tolerance: a share of at most 1)."""
+    atol, rtol = tol
+    got, want = got.float(), want.float()
+    rms = float(want.square().mean().sqrt())
+    diff = (got - want).abs()
+    share = diff / (atol * rms + rtol * want.abs())
+    return float(diff.max()) / rms, float(share.max())
+
+
+def _ssm_serve_path(torch):
+    """Full-width mamba2-2.7b through the port's serve path on the card, with
+    the launch counts set to 0 just before and read just after; then a
+    short profiled decode window, the SSD operands of layers 0 and 63 from
+    another prefill, and the full-width BatchingServer.  Returns the
+    launches, the captured operands and the path's numbers."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.mamba2_2p7b import CONFIG
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serving import BatchingServer, Request, ServerConfig
+
+    s_cfg = CONFIG.ssm
+    t = time.perf_counter()
+    model = build_model(CONFIG, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"[ssm] {CONFIG.name}: {n_params} parameters ({param_bytes / 1e9:.3f} GB) drawn "
+          f"on the card in {time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    serve.serve(model, batch=LM_BATCH, prompt_len=LM_PROMPT, decode_steps=2,
+                cache_len=LM_CACHE)
+    print(f"[ssm] first call (prefill + 2 decode steps) {time.perf_counter() - t:.2f} s",
+          flush=True)
+
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.reset()
+    out = serve.serve(model, batch=LM_BATCH, prompt_len=LM_PROMPT, decode_steps=LM_DECODE,
+                      cache_len=LM_CACHE)
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[ssm] main path launches {launches}", flush=True)
+    if launches != {"ssd_chunk_forward": CONFIG.num_layers}:
+        raise RuntimeError(f"the prefill launched {launches}, expected ssd_chunk_forward "
+                           f"{CONFIG.num_layers} times and nothing else")
+    if not torch.isfinite(out["logits"].float()).all():
+        raise RuntimeError("non-finite logits")
+    tokens = out["tokens"]
+    if (tuple(tokens.shape) != (LM_BATCH, 1 + LM_DECODE) or int(tokens.min()) < 0
+            or int(tokens.max()) >= CONFIG.vocab_size):
+        raise RuntimeError(f"bad sampled tokens {tuple(tokens.shape)}")
+    print(f"[ssm] serve: prefill_s={out['prefill_s']:.6f} decode_s={out['decode_s']:.6f} "
+          f"decode_tok_per_s={out['decode_tok_per_s']:.3f} peak device memory "
+          f"{peak / 1e9:.3f} GB, finite logits, sampled tokens[0] "
+          f"{tokens[0, :16].tolist()}", flush=True)
+
+    # one short profiled decode window: device ops and busy time a step
+    window = 4
+    cache = model.init_cache(LM_BATCH, LM_CACHE)
+    token = tokens[:, :1].to("cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(window):
+            logits, cache = model.decode_step({"token": token, "pos": i, "cache": cache})
+            token = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    by_name, device_ops = _device_by_name(torch, prof)
+    busy = sum(by_name.values()) / 1e6 if by_name else None
+    ops_per_step = device_ops / window if by_name else None
+    busy_per_step = busy / window if by_name else None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[ssm] profiled decode window of {window} steps: {window_s:.6f} s wall, device "
+          f"busy {_fmt(busy, '.6f')} s, idle share {_fmt(_idle_share(busy, window_s), '.5f')}, "
+          f"{_fmt(ops_per_step, '.0f')} device kernels and copies a step (profile and "
+          f"summary {time.perf_counter() - t:.2f} s)", flush=True)
+    del cache, logits
+
+    # bounds: decode reads every weight but the token table (B rows of it)
+    # and reads and writes the state and conv tails; the prefill's
+    # projections and logits at the bf16 peak, plus the SSD's operations
+    tok_bytes = model.embed.tok.numel() * model.embed.tok.element_size()
+    cache_bytes = sum(math.prod(shape) * (torch.finfo(dtype).bits // 8)
+                      for shape, dtype in model.abstract_cache(LM_BATCH, 0).values())
+    step_bytes = param_bytes - tok_bytes + LM_BATCH * CONFIG.d_model * 2 + 2 * cache_bytes
+    decode_bound = LM_BATCH / (step_bytes / HBM_BYTES_PER_S)
+    d, din = CONFIG.d_model, s_cfg.d_inner(CONFIG.d_model)
+    h, gn = s_cfg.n_heads(CONFIG.d_model), s_cfg.n_groups * s_cfg.d_state
+    proj_flops = (2 * LM_BATCH * LM_PROMPT * CONFIG.num_layers
+                  * (d * (2 * din + 2 * gn + h) + din * d)
+                  + 2 * LM_BATCH * d * CONFIG.vocab_size)
+
+    # the SSD operands of layers 0 and 63, from another prefill: what
+    # ssd_chunked hands to kernels.ops
+    captured = []
+    original = ops.ssd_chunk_forward
+
+    def capture(x, dt, a, b_, c_, **kw):
+        if len(captured) in SSM_CAPTURE_LAYERS:
+            captured.append(tuple(t.clone() for t in (x, dt, a, b_, c_)))
+        else:
+            captured.append(None)
+        return original(x, dt, a, b_, c_, **kw)
+
+    ops.ssd_chunk_forward = capture
+    t = time.perf_counter()
+    try:
+        serve.serve(model, batch=LM_BATCH, prompt_len=LM_PROMPT, decode_steps=0,
+                    cache_len=LM_CACHE)
+    finally:
+        ops.ssd_chunk_forward = original
+    operands = {i: captured[i] for i in SSM_CAPTURE_LAYERS}
+    print(f"[ssm] operands of layers {SSM_CAPTURE_LAYERS} captured in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    x, _, _, b_, _ = operands[SSM_CAPTURE_LAYERS[0]]
+    _, _, ssd_flops, _ = _ssd_bound(x, b_, s_cfg.chunk)
+    prefill_bound = (proj_flops + CONFIG.num_layers * ssd_flops) / BF16_OPS_PER_S
+    numbers = {
+        "config": CONFIG.name, "parameters": n_params, "param_bytes": param_bytes,
+        "batch": LM_BATCH, "prompt_len": LM_PROMPT, "decode_steps": LM_DECODE,
+        "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+        "decode_tok_per_s": out["decode_tok_per_s"],
+        "ssd_chunk_forward_launches": launches.get("ssd_chunk_forward", 0),
+        "peak_device_bytes": peak, "prefill_projection_flops": proj_flops,
+        "prefill_ssd_flops": CONFIG.num_layers * ssd_flops,
+        "prefill_bound_s": prefill_bound, "decode_step_bytes": step_bytes,
+        "decode_bound_tok_per_s": decode_bound, "profiled_window_steps": window,
+        "profiled_window_s": window_s, "decode_device_busy_s_per_step": busy_per_step,
+        "decode_device_ops_per_step": ops_per_step,
+        "decode_device_idle_share": _idle_share(busy, window_s),
+        "decode_device_top_us": {k[:80]: v for k, v in top},
+        "sampled_tokens_0": tokens[0, :16].tolist(),
+    }
+    print(f"[ssm] bounds: prefill {prefill_bound * 1e3:.3f} ms ({proj_flops} projection "
+          f"flops + {CONFIG.num_layers * ssd_flops} SSD flops at the bf16 peak), decode "
+          f"{decode_bound:.1f} tokens/s ({step_bytes} bytes a step)", flush=True)
+    del captured, model, out
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    server = BatchingServer(CONFIG, ServerConfig(slots=4, cache_len=LM_CACHE), seed=0,
+                            device="cuda")
+    print(f"[ssm] BatchingServer built in {time.perf_counter() - t:.2f} s", flush=True)
+    rng = np.random.default_rng(1)
+    for rid in range(4):
+        server.submit(Request(rid=rid, prompt=rng.integers(0, CONFIG.vocab_size, 16)
+                              .astype(np.int32), max_new_tokens=8))
+    t0 = time.perf_counter()
+    done = server.run()
+    server_s = time.perf_counter() - t0
+    if len(done) != 4 or any(len(r.output) != 8 for r in done) or any(
+            not 0 <= tok < CONFIG.vocab_size for r in done for tok in r.output):
+        raise RuntimeError(f"BatchingServer finished {[len(r.output) for r in done]}")
+    report = BatchingServer.latency_report(done)
+    print(f"[ssm] BatchingServer: 4 requests in {server_s:.3f} s, latency_report "
+          f"{json.dumps(report)}", flush=True)
+    numbers["server"] = {"slots": 4, "requests": 4, "prompt_len": 16, "new_tokens": 8,
+                         "run_s": server_s, "latency_report": report,
+                         "outputs": {r.rid: r.output for r in done}}
+    del server
+    torch.cuda.empty_cache()
+    return launches, operands, numbers
+
+
+def _ssd_checks(torch, operands, launches):
+    """``ssd_chunk_forward`` at the main path's operands (layers 0 and 63):
+    in bf16 as the path runs it and on the same operands cast to float32,
+    y and the final state against the plain version (the sequential
+    float32 recurrence) within ``SSD_TOL``; then times of kernel and plain
+    version beside the bound (layer 0's bf16 operands).  The plain
+    version's 1024 positions take ~9 small launches each, more than can be
+    queued behind a sleep, so its time is a call time (CUDA events around
+    back-to-back calls)."""
+    from repro_torch.configs.mamba2_2p7b import CONFIG
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as kssd
+
+    chunk = CONFIG.ssm.chunk
+    worst = 0.0
+    for layer, ops_ in sorted(operands.items()):
+        x, dt, a, b_, c_ = ops_
+        for name in ("bfloat16", "float32"):
+            if name == "float32":
+                x, b_, c_ = x.float(), b_.float(), c_.float()
+            y, state = kssd.ssd_chunk_forward(x, dt, a, b_, c_, chunk=chunk)
+            want_y, want_state = ref.ssd_scan(x, dt, a, b_, c_)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(y.float()).all() and torch.isfinite(state).all()):
+                raise RuntimeError(f"ssd_chunk_forward layer {layer} {name}: not finite")
+            err_y, share_y = _ssd_close(y, want_y, SSD_TOL[name])
+            err_s, share_s = _ssd_close(state, want_state, SSD_TOL["float32"])
+            if max(share_y, share_s) > 1:
+                raise RuntimeError(f"ssd_chunk_forward layer {layer} {name}: y {err_y:.3e} "
+                                   f"of rms(y), state {err_s:.3e} of rms(state); shares of "
+                                   f"the bound {share_y:.3f}, {share_s:.3f}")
+            if name == "bfloat16":
+                worst = max(worst, err_y)
+            print(f"[kernel] ssd_chunk_forward layer {layer} {name} x {tuple(x.shape)} B/C "
+                  f"{tuple(b_.shape)}: max |kernel - plain| y {err_y:.3e} rms(y), state "
+                  f"{err_s:.3e} rms(state); largest share of the per-element bound "
+                  f"atol*rms + rtol*|want| {SSD_TOL[name]} {share_y:.3f} (y), "
+                  f"{SSD_TOL['float32']} {share_s:.3f} (state); rms(y) "
+                  f"{float(want_y.float().square().mean().sqrt()):.4e}, rms(state) "
+                  f"{float(want_state.square().mean().sqrt()):.4e}, dt max "
+                  f"{float(dt.max()):.2f}", flush=True)
+            del y, state, want_y, want_state
+
+    x, dt, a, b_, c_ = operands[SSM_CAPTURE_LAYERS[0]]
+    kernel = lambda: kssd.ssd_chunk_forward(x, dt, a, b_, c_, chunk=chunk)
+    plain = lambda: ref.ssd_scan(x, dt, a, b_, c_)
+    bound_ms, bound_by, flops, nbytes = _ssd_bound(x, b_, chunk)
+    plain_ms = _call_ms(torch, plain, iters=3)
+    row = dict(
+        name="ssd_chunk_forward", route="cuda", source="src/repro_torch/csrc/ssd_chunk.cu",
+        replaces="src/repro/kernels/ssd_chunk.py:67",
+        shape=f"x {tuple(x.shape)} B/C {tuple(b_.shape)} bf16 chunk {chunk} "
+              f"(layer {SSM_CAPTURE_LAYERS[0]} of the mamba2-2.7b prefill)",
+        launches=launches["ssd_chunk_forward"], max_abs_err=worst,
+        ms=_queued_ms(torch, kernel), plain_ms=plain_ms, plain_timed_by="call",
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        call_ms=_call_ms(torch, kernel, iters=20), plain_call_ms=plain_ms,
+        library_call_ms=None,
+    )
+    print(f"[kernel] ssd_chunk_forward {row['shape']}: kernel_ms={row['ms']:.6f} "
+          f"plain_ms={plain_ms:.6f} (call time) library_ms=None bound_ms={bound_ms:.6f} "
+          f"({bound_by}: {flops} flops, {nbytes} bytes) call_ms={row['call_ms']:.6f}",
+          flush=True)
+    return row
+
+
+def _ssd_adversarial_checks(torch) -> None:
+    """``ssd_chunk_forward`` against its plain version on inputs the main
+    path never makes: S of 1, 63, 256, 300 and 1000 (ragged last chunks,
+    one position); groups 1, 2 and 8; P and N of 16, 64 and 128; dt large
+    enough that cs reaches -1e4 in a chunk (every exp underflows but the
+    diagonal's); A = 0 (no decay at all); an initial state; float32 and
+    bf16, y and the final state within ``SSD_TOL``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as kssd
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    # (B, S, H, P, G, N, chunk, kind)
+    cases = ((1, 1, 8, 64, 1, 128, 256, "normal"), (2, 63, 8, 16, 2, 16, 256, "normal"),
+             (1, 256, 16, 64, 8, 64, 256, "normal"), (2, 300, 8, 128, 2, 128, 256, "normal"),
+             (1, 1000, 8, 64, 1, 128, 256, "normal"), (2, 130, 4, 16, 1, 64, 64, "normal"),
+             (1, 512, 4, 64, 1, 64, 256, "large dt"), (1, 300, 4, 32, 2, 32, 128, "A = 0"),
+             (2, 200, 8, 64, 2, 128, 256, "initial state"))
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for bsz, s, h, p, g, n, chunk, kind in cases:
+            x = (torch.randn((bsz, s, h, p), generator=gen, device="cuda") * 0.5).to(dtype)
+            dt = torch.nn.functional.softplus(torch.randn((bsz, s, h), generator=gen,
+                                                          device="cuda"))
+            a = -torch.exp(torch.randn(h, generator=gen, device="cuda") * 0.3)
+            bm = (torch.randn((bsz, s, g, n), generator=gen, device="cuda") * 0.5).to(dtype)
+            cm = (torch.randn((bsz, s, g, n), generator=gen, device="cuda") * 0.5).to(dtype)
+            init = None
+            if kind == "large dt":                 # dt*A ~ -40 a position
+                dt = dt + 40.0
+                a = -torch.ones_like(a)
+            elif kind == "A = 0":
+                a = torch.zeros_like(a)
+            elif kind == "initial state":
+                init = torch.randn((bsz, h, p, n), generator=gen, device="cuda")
+            y, state = kssd.ssd_chunk_forward(x, dt, a, bm, cm, chunk=chunk,
+                                              initial_state=init)
+            want_y, want_state = ref.ssd_scan(x, dt, a, bm, cm, init)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(y.float()).all() and torch.isfinite(state).all()):
+                raise RuntimeError(f"ssd_chunk_forward {kind} S={s} {name}: not finite")
+            err_y, share_y = _ssd_close(y, want_y, SSD_TOL[name])
+            err_s, share_s = _ssd_close(state, want_state, SSD_TOL["float32"])
+            if max(share_y, share_s) > 1:
+                raise RuntimeError(f"ssd_chunk_forward {kind} (B={bsz}, S={s}, H={h}, P={p}, "
+                                   f"G={g}, N={n}, chunk {chunk}) {name}: y {err_y:.3e} "
+                                   f"rms(y), state {err_s:.3e} rms(state), shares "
+                                   f"{share_y:.3f}, {share_s:.3f}")
+    print("[adversarial] ssd_chunk_forward S in (1, 63, 130, 200, 256, 300, 512, 1000), "
+          "G in (1, 2, 8), P and N in (16, 32, 64, 128), chunks 64/128/256, dt*A ~ -40 "
+          "(|cs| to 1e4), A = 0, an initial state, f32 and bf16: within tolerance",
+          flush=True)
+
+
+def _ssm_card_vs_cpu(torch):
+    """A depth-2, full-width mamba2-2.7b from one set of weights (drawn on
+    the card from seed 1) on the card and on the CPU: prefill of 2 prompts
+    of 512 tokens (2 chunks), then 4 greedy decode steps.  float32: every
+    call's logits within 1e-3 of their rms, greedy tokens equal; bf16:
+    within 10% of their rms, both sides fed the CPU's tokens (bf16 logits
+    of a random model tie often), and whether the card's greedy tokens
+    equal the CPU's is printed.  The prefill's final state and conv tails
+    are held to the same bounds in relative norm, ||card - cpu|| / ||cpu||:
+    the state is heavy-tailed (its largest element ~50x its rms) and each
+    element depends exponentially on dt, which reaches 150 at these random
+    weights, so one rounding of dt's projection that differs between the
+    devices moves single elements by far more than the rms (bf16: 1.5x the
+    rms on an H100) while the tensor as a whole, and the decode
+    steps that read it, stay close.  The largest |diff| over the rms is
+    printed for each, and the largest relative norm of one (layer, batch
+    row, head) of the state.
+
+    That the per-element gap comes from the operands and not from the
+    scan is checked per element: each layer's scan, fed on the CPU the
+    card's own operands (x, dt, A, B, C as the card's projections, convs
+    and softplus made them), gives the card's y and final state within
+    ``SSD_TOL`` (the state at the float32 bound), and how far the card's
+    operands sit from the CPU's is printed.  A fault of the kernel in one
+    head would show there, undiluted by the other 79."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.mamba2_2p7b import CONFIG
+    from repro_torch.models import build_model, ssm
+
+    scan = ssm.ssd_chunked
+
+    def prefill_capturing(model, scans):
+        """The model's prefill, each layer's scan operands and outputs
+        copied to the host."""
+        def capture(x, dt, a, b_, c_, chunk, initial_state=None):
+            y, state = scan(x, dt, a, b_, c_, chunk, initial_state)
+            scans.append(([t.to("cpu", copy=True) for t in (x, dt, a, b_, c_)],
+                          y.to("cpu", copy=True), state.to("cpu", copy=True)))
+            return y, state
+
+        ssm.ssd_chunked = capture
+        try:
+            return model.prefill({"tokens": prompt})
+        finally:
+            ssm.ssd_chunked = scan
+
+    rng = np.random.default_rng(3)
+    prompt = torch.from_numpy(rng.integers(0, CONFIG.vocab_size, (2, 512)).astype(np.int32))
+    result = {}
+    for name, dtype, tol in (("float32", torch.float32, 1e-3),
+                             ("bfloat16", torch.bfloat16, 0.1)):
+        cfg = dataclasses.replace(CONFIG, num_layers=2, param_dtype=dtype, compute_dtype=dtype)
+        card = build_model(cfg, device="cuda").init(1)
+        cpu = build_model(cfg, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        t0 = time.perf_counter()
+        c_scans, g_scans = [], []
+        c_logits, c_cache = prefill_capturing(cpu, c_scans)
+        c_steps, c_toks = [c_logits.float()], [torch.argmax(c_logits, dim=-1).to(torch.int32)]
+        cache = {k: v.clone() for k, v in c_cache.items()}
+        for pos in range(4):
+            lg, cache = cpu.decode_step({"token": c_toks[-1], "pos": pos, "cache": cache})
+            c_steps.append(lg.float())
+            c_toks.append(torch.argmax(lg, dim=-1).to(torch.int32))
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        g_logits, g_cache = prefill_capturing(card, g_scans)
+        g_steps, g_toks = [g_logits.float().cpu()], [torch.argmax(g_logits, dim=-1).cpu()]
+        g_prefill_cache = {k: v.to("cpu", torch.float32, copy=True) for k, v in g_cache.items()}
+        cache = g_cache
+        for pos in range(4):
+            token = (g_toks[-1] if name == "float32" else c_toks[pos]).to(torch.int32)
+            lg, cache = card.decode_step({"token": token, "pos": pos, "cache": cache})
+            g_steps.append(lg.float().cpu())
+            g_toks.append(torch.argmax(lg, dim=-1).cpu().to(torch.int32))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        del card, cpu, cache, g_cache
+        torch.cuda.empty_cache()
+        rel = lambda g, c: float((g.float() - c.float()).abs().max()
+                                 / c.float().square().mean().sqrt())
+        rel_norm = lambda g, c: float((g.float() - c.float()).norm() / c.float().norm())
+        logit_rel = [rel(g, c) for g, c in zip(g_steps, c_steps)]
+        cache_rel = {k: rel(g_prefill_cache[k], c_cache[k]) for k in sorted(c_cache)}
+        cache_norm = {k: rel_norm(g_prefill_cache[k], c_cache[k]) for k in sorted(c_cache)}
+        same = bool(torch.equal(torch.cat(g_toks, 1).to(torch.int32),
+                                torch.cat(c_toks, 1).to(torch.int32)))
+        # ||card - cpu|| / ||cpu|| of each (layer, batch row, head) of the state
+        g_state, c_state = g_prefill_cache["state"], c_cache["state"].float()
+        head_norm = float(((g_state - c_state).flatten(3).norm(dim=-1)
+                           / c_state.flatten(3).norm(dim=-1)).max())
+        witness = []
+        for layer, ((g_ops, g_y, g_s), (c_ops, _, _)) in enumerate(zip(g_scans, c_scans)):
+            w_y, w_s = scan(*g_ops, CONFIG.ssm.chunk)
+            err_y, share_y = _ssd_close(g_y, w_y, SSD_TOL[name])
+            err_s, share_s = _ssd_close(g_s, w_s, SSD_TOL["float32"])
+            if max(share_y, share_s) > 1:
+                raise RuntimeError(f"card vs CPU {name} layer {layer}: the card's scan "
+                                   f"against the CPU's on the card's operands: y {err_y:.3e}, "
+                                   f"state {err_s:.3e} of the rms; shares of the bound "
+                                   f"{share_y:.3f}, {share_s:.3f}")
+            gdt, cdt = g_ops[1], c_ops[1]
+            witness.append({
+                "layer": layer, "y_max_diff_over_rms": err_y, "y_share": share_y,
+                "state_max_diff_over_rms": err_s, "state_share": share_s,
+                "dt_max": float(cdt.max()), "dt_max_abs_diff": float((gdt - cdt).abs().max()),
+                "operand_share_differing": {
+                    k: float((g != c).float().mean())
+                    for k, g, c in zip(("x", "dt", "B", "C"), (g_ops[0], gdt, *g_ops[3:]),
+                                       (c_ops[0], cdt, *c_ops[3:]))}})
+        del g_scans, c_scans
+        result[name] = {"logits_max_diff_over_rms": logit_rel,
+                        "prefill_cache_rel_norm": cache_norm,
+                        "prefill_cache_max_diff_over_rms": cache_rel,
+                        "state_worst_head_rel_norm": head_norm,
+                        "scan_on_card_operands": witness,
+                        "greedy_tokens_equal": same, "card_s": card_s, "cpu_s": cpu_s}
+        if max(logit_rel + list(cache_norm.values())) > tol:
+            raise RuntimeError(f"card vs CPU {name}: logits {logit_rel} of their rms, prefill "
+                               f"cache {cache_norm} in relative norm, bound {tol}")
+        if name == "float32" and not same:
+            raise RuntimeError(f"card vs CPU float32 greedy tokens differ: "
+                               f"{torch.cat(g_toks, 1).tolist()} vs {torch.cat(c_toks, 1).tolist()}")
+        print(f"[ssm] card vs CPU, depth 2 full width, prompt 512, {name}: logits per call "
+              f"{['%.3e' % r for r in logit_rel]} (max |diff| over rms), prefill cache "
+              f"{ {k: '%.3e' % v for k, v in cache_norm.items()} } (relative norm; bound "
+              f"{tol}); prefill cache max |diff| over rms "
+              f"{ {k: '%.3e' % v for k, v in cache_rel.items()} }; worst (layer, row, head) "
+              f"of the state {head_norm:.3e} (relative norm); greedy tokens equal: "
+              f"{same}; card {card_s:.2f} s, CPU {cpu_s:.2f} s", flush=True)
+        for w in witness:
+            print(f"[ssm] card vs CPU {name} layer {w['layer']}: the CPU's scan on the card's "
+                  f"operands gives the card's y within {w['y_max_diff_over_rms']:.3e} and its "
+                  f"state within {w['state_max_diff_over_rms']:.3e} of the rms (shares of the "
+                  f"per-element bound {w['y_share']:.3f}, {w['state_share']:.3f}); the card's "
+                  f"operands against the CPU's: dt (max {w['dt_max']:.2f}) differs by up to "
+                  f"{w['dt_max_abs_diff']:.4g}, share of elements differing "
+                  f"{ {k: '%.3e' % v for k, v in w['operand_share_differing'].items()} }",
+                  flush=True)
+    return result
+
+
 def main() -> int:
     torch, card = _setup()
     import numpy as np
@@ -1373,6 +1984,11 @@ def main() -> int:
     _bag_adversarial_checks(torch)
     print(f"[phase] data-path kernel checks and adversarial inputs "
           f"{time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    standalone = _standalone_checks(torch, operands)
+    _standalone_adversarial_checks(torch)
+    print(f"[phase] sigrid_hash and bucketize checks {time.perf_counter() - t:.1f} s",
+          flush=True)
 
     # the serving path: counts set to 0 just before, read just after
     t = time.perf_counter()
@@ -1415,6 +2031,7 @@ def main() -> int:
 
     for r in results:
         r["launches"] = launches[r["name"]]
+    results.extend(standalone)            # on no path of the port: 0 launches
     print(f"[phase] serving path {time.perf_counter() - t:.1f} s", flush=True)
 
     t = time.perf_counter()
@@ -1439,6 +2056,20 @@ def main() -> int:
     lm["card_vs_cpu"] = _lm_card_vs_cpu(torch)
     print(json.dumps({"lm": lm}), flush=True)
     print(f"[phase] LM card vs CPU {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = time.perf_counter()
+    ssm_launches, ssm_operands, ssm = _ssm_serve_path(torch)
+    print(f"[phase] SSM serving path {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    results.append(_ssd_checks(torch, ssm_operands, ssm_launches))
+    del ssm_operands
+    torch.cuda.empty_cache()
+    _ssd_adversarial_checks(torch)
+    print(f"[phase] ssd_chunk_forward checks {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    ssm["card_vs_cpu"] = _ssm_card_vs_cpu(torch)
+    print(json.dumps({"ssm": ssm}), flush=True)
+    print(f"[phase] SSM card vs CPU {time.perf_counter() - t:.1f} s", flush=True)
     print(f"[phase] total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": results}))
     print(card)

@@ -2,17 +2,17 @@
 
 Each architecture module defines ``CONFIG`` (the exact public config) and
 ``SMOKE`` (a reduced same-family config for CPU tests), as the reference's
-``repro.configs`` does.  Ported so far: ``dlrm-paper`` and the dense GQA
-``qwen3-8b``.
+``repro.configs`` does.  Ported so far: ``dlrm-paper``, the dense GQA
+``qwen3-8b`` and the pure SSM ``mamba2-2.7b``.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Any
 
-ARCH_IDS = ["qwen3-8b", "dlrm-paper"]
+ARCH_IDS = ["qwen3-8b", "mamba2-2.7b", "dlrm-paper"]
 
-_MODULES = {"qwen3-8b": "qwen3_8b", "dlrm-paper": "dlrm_paper"}
+_MODULES = {"qwen3-8b": "qwen3_8b", "mamba2-2.7b": "mamba2_2p7b", "dlrm-paper": "dlrm_paper"}
 
 
 def _module(arch: str):

@@ -15,9 +15,14 @@ becomes the port's parameter name ``"bottom.w0"``.
 An LM's weights in the reference are one tree whose layer leaves are
 stacked on a leading layer axis: ``embed.{tok,out}``, ``layers.{ln1, ln2,
 attn.{wq, wk, wv, wo, q_norm, k_norm}, ffn.{wi_gate, wi_up, wo}}`` and
-``ln_f``.  The port's ``DecoderLM`` holds one module per layer, so layer
-i's leaf ``layers.attn.wq[i]`` is its parameter ``layers.{i}.attn.wq``.
+``ln_f``; an SSM's layers hold ``ln1`` and ``mixer.{wz, wx, wB, wC, wdt,
+conv_x, conv_B, conv_C, out}`` with the float32 ``mixer.{A_log, D,
+dt_bias, norm}``.  The port's LMs hold one module per layer, so layer i's
+leaf ``layers.attn.wq[i]`` is its parameter ``layers.{i}.attn.wq``.
 bfloat16 leaves cross through their bits, so they come across exact.
+The caches are stacked on the layer axis in both packages (``{"k", "v"}``
+of the dense family, ``{"state", "conv_x", "conv_B", "conv_C"}`` of the
+SSM), so they cross leaf by leaf.
 """
 from __future__ import annotations
 
@@ -130,9 +135,9 @@ def _array(t: torch.Tensor) -> np.ndarray:
 
 
 def lm_params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The reference's ``DecoderLM`` parameter tree (numpy leaves, layers
-    stacked on axis 0) -> the port's ``DecoderLM`` state dict (CPU
-    tensors of the leaves' dtypes), for ``model.load_state_dict``."""
+    """The reference's LM parameter tree (numpy leaves, layers stacked on
+    axis 0) -> the port's state dict (CPU tensors of the leaves' dtypes),
+    for ``model.load_state_dict``."""
     out = {}
     for name, leaf in _flatten(tree).items():
         if name.startswith("layers."):
@@ -161,6 +166,7 @@ def lm_params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
 
 
 def lm_cache_from_numpy(cache: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The reference's stacked KV cache ``{"k", "v"}`` of (L, B, S, KVH, D)
-    -> the port's, CPU tensors of the same dtype."""
+    """The reference's stacked cache (the KV cache ``{"k", "v"}`` of (L, B,
+    S, KVH, D), or the SSM's state and conv tails) -> the port's, CPU
+    tensors of the same dtypes."""
     return {name: _tensor(np.asarray(a)) for name, a in cache.items()}

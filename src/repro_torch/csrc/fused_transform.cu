@@ -31,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sigrid_hash.cuh"
+
 namespace {
 
 constexpr int OP_SIGRID_HASH = 1;
@@ -40,15 +42,6 @@ constexpr int OP_BUCKETIZE = 4;
 constexpr int OP_CLAMP_F = 5;
 constexpr int OP_BUCKETIZE_F = 6;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
 
 __device__ __forceinline__ bool is_nan(float v) { return v != v; }
 
@@ -98,9 +91,7 @@ fused_transform_kernel(const int32_t* __restrict__ ids,
     int32_t y;
     switch (code) {
       case OP_SIGRID_HASH: {
-        const uint32_t h = hash_u32(static_cast<uint32_t>(x) ^ static_cast<uint32_t>(p0));
-        const uint32_t m = max(static_cast<uint32_t>(p1), 1u);
-        y = static_cast<int32_t>(h % m);
+        y = sigrid_hash_one(x, static_cast<uint32_t>(p0), max(static_cast<uint32_t>(p1), 1u));
         break;
       }
       case OP_POSITIVE_MODULUS: {

@@ -4,10 +4,10 @@ Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) into an object by
 its own ``nvcc`` (all started together), and the objects are linked into
 one shared library with a plain C interface.  The library goes to
 ``build/repro_torch/`` at the repository root, named by a hash of the
-sources, so a changed source builds anew and an unchanged one loads at
-once.  Nothing is built when the module is imported: the first launch
-builds, under a lock, because several DPP worker threads reach their
-first launch together.
+sources (the ``*.cuh`` headers they include too), so a changed source
+builds anew and an unchanged one loads at once.  Nothing is built when
+the module is imported: the first launch builds, under a lock, because
+several DPP worker threads reach their first launch together.
 
 Each C entry point takes device pointers, sizes and the CUDA stream, and
 returns ``cudaGetLastError()`` after its launch; ``check`` raises on a
@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
+_U32 = ctypes.c_uint32
 _F32 = ctypes.c_float
 # C signatures: every pointer (and the stream) is a c_void_p, so ctypes
 # never cuts a 64-bit address to a 32-bit int
@@ -52,6 +53,13 @@ SIGNATURES = {
         _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
         _I32, _F32, _I32, _P,
     ),
+    "ssd_chunk_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+        _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+        _I64, _I64, _I64, _I64, _I32, _P,
+    ),
+    "sigrid_hash_launch": (_P, _P, _I64, _U32, _U32, _P),
+    "bucketize_launch": (_P, _P, _P, _I64, _I32, _P),
 }
 
 _lock = threading.Lock()
@@ -60,7 +68,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu")):
+    for p in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

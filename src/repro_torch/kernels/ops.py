@@ -3,20 +3,24 @@
 A CPU tensor runs the plain PyTorch version (``repro_torch.kernels.ref``);
 a CUDA tensor launches the hand-written kernel (``kernels.decode``,
 ``kernels.fused_transform``, ``kernels.embedding_bag``,
-``kernels.flash_attention``), which raises on anything it cannot take.
-There is no fallback from a CUDA tensor to the plain version.
+``kernels.flash_attention``, ``kernels.ssd_chunk``, ``kernels.sigrid_hash``,
+``kernels.bucketize``), which raises on anything it cannot take.  There
+is no fallback from a CUDA tensor to the plain version.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import bucketize as _bucketize
 from repro_torch.kernels import decode as _decode
 from repro_torch.kernels import embedding_bag as _embag
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_transform as _ft
 from repro_torch.kernels import ref
+from repro_torch.kernels import sigrid_hash as _sigrid
+from repro_torch.kernels import ssd_chunk as _ssd
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -78,3 +82,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _on_cpu(q):
         return ref.flash_attention(q, k, v, causal=causal, scale=scale)
     return _flash.flash_attention(q, k, v, causal=causal, scale=scale)
+
+
+def ssd_chunk_forward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                      b_: torch.Tensor, c_: torch.Tensor, *, chunk: int = 256,
+                      initial_state: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD scan in the model's layout: x (B, S, H, P), dt (B, S, H),
+    a (H,) or (B, H), b_ and c_ (B, S, G, N) -> y (B, S, H, P) in x's dtype
+    and the final state (B, H, P, N) float32.  On a CPU tensor the
+    sequential float32 recurrence (``ref.ssd_scan``, which has no chunks);
+    on a CUDA tensor the chunked kernel, ``chunk`` positions at a time."""
+    if _on_cpu(x):
+        return ref.ssd_scan(x, dt, a, b_, c_, initial_state)
+    return _ssd.ssd_chunk_forward(x, dt, a, b_, c_, chunk=chunk, initial_state=initial_state)
+
+
+def sigrid_hash(ids: torch.Tensor, salt: int, max_value: int) -> torch.Tensor:
+    """``hash(ids ^ salt) % max_value`` in uint32 over int32 ids -> int32."""
+    if _on_cpu(ids):
+        return ref.sigrid_hash(ids, salt, max_value)
+    return _sigrid.sigrid_hash(ids, salt, max_value)
+
+
+def bucketize(values: torch.Tensor, borders: torch.Tensor) -> torch.Tensor:
+    """The count of borders strictly below each float32 value -> int32."""
+    if _on_cpu(values):
+        return ref.bucketize(values, borders)
+    return _bucketize.bucketize(values, borders)

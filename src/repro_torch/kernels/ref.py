@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the slice's CUDA kernels (the bit-exact truth).
+"""Plain PyTorch versions of the port's CUDA kernels (the truth they are held to).
 
 Each function computes what its kernel in ``repro_torch/csrc`` computes,
 on any device.  The wrappers in ``repro_torch.kernels.ops`` run these on
 CPU tensors; ``chip_smoke.py`` holds every kernel against them on the card.
-They mirror ``repro.kernels.ref`` of the reference package bit for bit.
+They mirror ``repro.kernels.ref`` of the reference package bit for bit,
+except ``flash_attention`` and ``ssd_scan``, whose reference oracles and
+kernels agree only within a stated tolerance.
 
 Integer hazards of torch (2.x) that shape the code:
 
@@ -64,6 +66,31 @@ def _hash_u32(x: torch.Tensor) -> torch.Tensor:
     x = x ^ (x >> 15)
     x = _mul_lo32(x, 0x846CA68B)
     return x ^ (x >> 16)
+
+
+def check_hash_args(salt: int, max_value: int) -> None:
+    """The reference takes salt and max_value as ``jnp.uint32``, which
+    refuses values outside [0, 2**32); a modulus of 0 is refused too."""
+    if not 0 <= int(salt) <= _M32:
+        raise ValueError(f"sigrid_hash: salt {salt} not in [0, 2**32)")
+    if not 0 < int(max_value) <= _M32:
+        raise ValueError(f"sigrid_hash: max_value {max_value} not in [1, 2**32)")
+
+
+def sigrid_hash(ids: torch.Tensor, salt: int, max_value: int) -> torch.Tensor:
+    """int32 ids (any shape) -> ``hash(ids ^ salt) % max_value`` in uint32,
+    reinterpreted as int32 (values of 2**31 and up wrap negative, as the
+    reference's ``astype(int32)`` does)."""
+    check_hash_args(salt, max_value)
+    return _i32(_hash_u32(_u32(ids) ^ int(salt)) % int(max_value))
+
+
+def bucketize(values: torch.Tensor, borders: torch.Tensor) -> torch.Tensor:
+    """The count of borders strictly below each value, compared in float32:
+    values (any shape), borders (nb,) -> int32.  A count, not a search, so
+    it holds for unsorted borders too; NaN compares false either way."""
+    v = values.to(torch.float32)
+    return (v[..., None] > borders.to(torch.float32)).sum(-1, dtype=torch.int32)
 
 
 def _f32(bits: torch.Tensor) -> torch.Tensor:
@@ -242,3 +269,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sc = torch.where(pos[:s, None] >= pos[None, :t], sc, MASK_VALUE)
     p = torch.softmax(sc, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b_: torch.Tensor,
+             c_: torch.Tensor, initial_state: Optional[torch.Tensor] = None):
+    """The SSD recurrence, one position at a time in float32, in the
+    model's layout: x (B, S, H, P), dt (B, S, H), a (H,) or (B, H), b_ and
+    c_ (B, S, G, N) with head h reading group h // (H/G).  For t in order,
+    ``state = exp(dt_t a) state + dt_t x_t B_t^T`` and ``y_t = state C_t``;
+    returns y (B, S, H, P) in x's dtype and the final state (B, H, P, N)
+    float32, from ``initial_state`` or zero.  Groups broadcast over their
+    heads: nothing is expanded."""
+    bsz, s, h, p = x.shape
+    g, n = b_.shape[2], b_.shape[3]
+    hg = h // g
+    f32 = torch.float32
+    a = a.to(f32).expand(bsz, h)
+    xf, dtf, bf, cf = (t.to(f32) for t in (x, dt, b_, c_))
+    if initial_state is None:
+        state = torch.zeros((bsz, h, p, n), dtype=f32, device=x.device)
+    else:
+        state = initial_state.to(f32).clone(memory_format=torch.contiguous_format)
+    ys = torch.empty((bsz, s, h, p), dtype=f32, device=x.device)
+    for t in range(s):
+        da = torch.exp(dtf[:, t] * a)                                   # (B, H)
+        dx = (xf[:, t] * dtf[:, t, :, None]).reshape(bsz, g, hg, p, 1)
+        state = (state * da[:, :, None, None]).view(bsz, g, hg, p, n) + \
+            dx * bf[:, t].reshape(bsz, g, 1, 1, n)
+        ys[:, t] = (state.view(bsz, g, hg * p, n) @ cf[:, t, :, :, None]).view(bsz, h, p)
+        state = state.view(bsz, h, p, n)
+    return ys.to(x.dtype), state
+
+
+def ssd_chunk_forward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                      b_: torch.Tensor, c_: torch.Tensor):
+    """The reference's ``ref.ssd_chunk_forward`` in the TPU kernel's
+    layout: x (BH, S, P), dt (BH, S), a (BH,), b_ and c_ (BH, S, N) ->
+    y (BH, S, P) in x's dtype, from a zero state, and the final state
+    (BH, N, P) float32, which the TPU kernel does not return.  It is
+    ``ssd_scan`` with one head and one group per row."""
+    y, state = ssd_scan(x[:, :, None], dt[:, :, None], a[:, None], b_[:, :, None],
+                        c_[:, :, None])
+    y = y[:, :, 0]
+    return y, state[:, 0].transpose(-1, -2)

@@ -1,15 +1,18 @@
 """Serving entry point: prefill a batch of prompts, then batched decode with a
-KV cache.
+KV cache (or, for an SSM, its recurrent state).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --smoke \\
       --batch 4 --prompt-len 32 --decode-steps 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --smoke \\
+      --device cpu
 
 A port of the reference's ``repro.launch.serve``: the same flags and
 printed lines, plus ``--device`` (``cuda`` unless asked for ``cpu``).
 The weights are drawn from seed 0 on the device and the prompt from
 ``numpy.random.default_rng(0)``; the decode loop runs against a fresh
-fixed-capacity cache from position 0, as the reference's does.  Only the
-dense GQA family (``qwen3-8b``) is ported.
+fixed-capacity cache from position 0, as the reference's does.  The dense
+GQA family (``qwen3-8b``) and the pure SSM family (``mamba2-2.7b``) are
+ported.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ def _sync(device: torch.device) -> None:
 def serve(model: DecoderLM, *, batch: int = 4, prompt_len: int = 32,
           decode_steps: int = 16, cache_len: int = 128) -> Dict[str, Any]:
     """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
-    ``decode_steps`` tokens greedily, on the model's device; returns the
+    ``decode_steps`` tokens greedily, on the model's device (any LM of the
+    port: a ``DecoderLM`` or its subclass ``SSMLM``); returns the
     timings, the sampled tokens (B, 1 + decode_steps) and the last
     logits."""
     dev = model.device

@@ -4,6 +4,8 @@ A port of the dense half of the reference's ``repro.models.transformer``
 (``DecoderLM``) for serving: ``prefill`` (forward over the prompt,
 emitting the KV cache) and ``decode_step`` (one token against the cache).
 MoE, MLA and the vision frontend, and the training loss, are not ported.
+``repro_torch.models.ssm_lm.SSMLM`` is a ``DecoderLM`` with other layers,
+cache and serving steps.
 
 The reference scans one stacked parameter tree over the layers; here the
 layers are an ``nn.ModuleList`` whose parameters keep the reference's
@@ -39,25 +41,32 @@ from repro_torch.models.common import (
 )
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise for a config of a family the port does not have yet."""
+def check_family(cfg: ModelConfig, family: str) -> None:
+    """Raise for a config that the port's model of ``family`` ("dense":
+    ``DecoderLM``, "ssm": ``SSMLM``) does not serve: another family, or a
+    feature of the LM families the port does not have yet."""
     missing = [what for what, has in (
         ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
         (f"the {cfg.frontend} frontend", cfg.frontend is not None),
-        ("SSM", cfg.family == "ssm" or cfg.ssm is not None),
+        ("SSM", family != "ssm" and (cfg.family == "ssm" or cfg.ssm is not None)),
         ("hybrid", cfg.family == "hybrid"),
         ("encoder-decoder", cfg.encoder_layers > 0),
     ) if has]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet; the port serves the "
-            "dense GQA decoder family only")
+            "dense GQA decoder and the pure SSM (Mamba-2) families only")
+    if family == "ssm" and (cfg.family != "ssm" or cfg.ssm is None):
+        raise ValueError(f"{cfg.name}: an SSM model needs family 'ssm' and an SSMConfig, "
+                         f"got family {cfg.family!r}")
 
 
 class DecoderLM(nn.Module):
+    family = "dense"                  # the config family this model serves
+
     def __init__(self, cfg: ModelConfig, device: Union[str, torch.device] = "cuda"):
         super().__init__()
-        check_dense(cfg)
+        check_family(cfg, self.family)
         self.cfg = cfg
         dev = resolve(device, "DecoderLM")
         self.embed = module_from_specs(layers.embed_specs(cfg), dev)

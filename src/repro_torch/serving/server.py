@@ -10,8 +10,10 @@ The slot logic is the reference's, its fault included: ``decode_step``
 writes the K/V of every batch row at ``pos``, so replaying one slot's
 prompt (the other rows carry token 0) overwrites the cached rows of the
 other slots at those positions, and admitting a second request changes
-the first one's output.  The port gives the reference's tokens, so it
-keeps that behaviour.
+the first one's output.  For an SSM (``SSMLM``) it is worse: every
+decode step advances the recurrent state of every row, so replaying one
+slot's prompt feeds token 0 into every other slot's state.  The port gives
+the reference's tokens, so it keeps that behaviour.
 """
 from __future__ import annotations
 

@@ -14,8 +14,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import bucketize as kbucketize  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
+from repro_torch.kernels import sigrid_hash as ksigrid  # noqa: E402
+from repro_torch.kernels import ssd_chunk as kssd  # noqa: E402
 
 # the reference's own kernel sweep (tests/test_kernels.py) holds its Pallas
 # flash attention to its dense oracle within these, on unit-normal operands
@@ -65,3 +68,109 @@ def test_flash_kernel_gqa_layout_matches_plain(cuda):
     torch.cuda.synchronize()
     assert got.is_contiguous()
     assert torch.equal(got, want)
+
+
+# ssd_chunk_forward against the sequential float32 recurrence, per element
+# within atol * rms(want) + rtol * |want|: float32 the reference sweep's
+# (5e-4, 1e-3; tests/test_kernels.py); bf16 2e-2 of both, as the
+# flash_attention sweep's bf16 bound (m is rounded to bf16 before m.x, a
+# 2^-9 relative error a term, and y to bf16 at the end)
+SSD_TOL = {torch.float32: (5e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _ssd_close(got, want, dtype):
+    atol, rtol = SSD_TOL[dtype]
+    got, want = got.float(), want.float()
+    rms = float(want.square().mean().sqrt())
+    assert bool(((got - want).abs() <= atol * rms + rtol * want.abs()).all()), \
+        float((got - want).abs().max()) / rms
+
+
+def _ssd_operands(cuda, dtype, b, s, h, p, g, n, seed):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = (torch.randn((b, s, h, p), generator=gen) * 0.5).to(cuda, dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen)).to(cuda)
+    a = (-torch.exp(torch.randn(h, generator=gen) * 0.3)).to(cuda)
+    bm = (torch.randn((b, s, g, n), generator=gen) * 0.5).to(cuda, dtype)
+    cm = (torch.randn((b, s, g, n), generator=gen) * 0.5).to(cuda, dtype)
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,chunk,h,p,g,n", [
+    (100, 32, 4, 16, 2, 64),         # ragged last chunk, two groups
+    (256, 256, 8, 64, 1, 128),       # one full chunk at the model's P and N
+    (300, 128, 2, 128, 1, 16),       # P of 128, a short N
+])
+def test_ssd_kernel_matches_plain(cuda, dtype, s, chunk, h, p, g, n):
+    """y and the final state (B, H, P, N) against ``ref.ssd_scan``, from a
+    zero and from a given initial state."""
+    x, dt, a, bm, cm = _ssd_operands(cuda, dtype, 2, s, h, p, g, n, s + p)
+    init = torch.randn((2, h, p, n), device=cuda)
+    before = build.LAUNCHES.snapshot().get("ssd_chunk_forward", 0)
+    for start in (None, init):
+        y, state = kssd.ssd_chunk_forward(x, dt, a, bm, cm, chunk=chunk, initial_state=start)
+        want_y, want_state = ref.ssd_scan(x, dt, a, bm, cm, start)
+        torch.cuda.synchronize()
+        assert y.dtype == dtype and state.dtype == torch.float32
+        assert state.shape == (2, h, p, n)
+        _ssd_close(y, want_y, dtype)
+        _ssd_close(state, want_state, torch.float32)
+    assert build.LAUNCHES.snapshot()["ssd_chunk_forward"] == before + 2
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_tpu_layout_and_strided_operands(cuda):
+    """The TPU kernel's (BH, S, P) form (H = G = 1, A per row) gives the
+    reference oracle's function; operands read through strides (x a slice
+    of a wider tensor) give what contiguous copies give."""
+    x, dt, a, bm, cm = _ssd_operands(cuda, torch.float32, 1, 64, 6, 32, 6, 16, 3)
+    rows = [t[0].transpose(0, 1).contiguous() for t in (x, dt, bm, cm)]
+    ab = a.clone()
+    y, state = kssd.ssd_chunk_forward(rows[0][:, :, None], rows[1][:, :, None], ab[:, None],
+                                      rows[2][:, :, None], rows[3][:, :, None], chunk=16)
+    want_y, want_state = ref.ssd_chunk_forward(rows[0], rows[1], ab, rows[2], rows[3])
+    _ssd_close(y[:, :, 0], want_y, torch.float32)
+    _ssd_close(state[:, 0].transpose(-1, -2), want_state, torch.float32)
+    wide = torch.randn((1, 64, 6, 48), device=cuda)
+    wide[..., :32] = x
+    got, got_state = kssd.ssd_chunk_forward(wide[..., :32], dt, a, bm, cm, chunk=16)
+    want, want_s = kssd.ssd_chunk_forward(x.contiguous(), dt, a, bm, cm, chunk=16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_state, want_s)
+
+
+@pytest.mark.cuda
+def test_sigrid_hash_kernel_bit_exact(cuda):
+    """Aligned and unaligned tiles, odd sizes, INT_MIN/-1/0 ids, the extreme
+    salts and moduli (remainders above INT_MAX wrap negative)."""
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.integers(-(2 ** 31), 2 ** 31, 4099, dtype=np.int64)
+                           .astype(np.int32)).to(cuda)
+    ids[:3] = torch.tensor([-(2 ** 31), -1, 0], dtype=torch.int32)
+    before = build.LAUNCHES.snapshot().get("sigrid_hash", 0)
+    for t in (ids, ids[1:], ids[:4096].view(64, 64)):
+        for salt, mv in ((0, 1), (2 ** 32 - 1, 2 ** 31 - 1), (7, 2 ** 31 + 5),
+                         (123, 2 ** 32 - 1), (5, 2_000_000)):
+            assert torch.equal(ksigrid.sigrid_hash(t, salt, mv), ref.sigrid_hash(t, salt, mv))
+    assert build.LAUNCHES.snapshot()["sigrid_hash"] == before + 15
+
+
+@pytest.mark.cuda
+def test_bucketize_kernel_bit_exact(cuda):
+    """NaN, infinite, subnormal and signed-zero values; NaN, unsorted and
+    signed-zero borders; 0, 1, 63 and 5000 borders (more than one shared
+    memory slice)."""
+    rng = np.random.default_rng(5)
+    v = torch.from_numpy((rng.standard_normal(3001) * 3).astype(np.float32)).to(cuda)
+    v[:8] = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1e-40,
+                          -1e-40, 1.0])
+    borders = [torch.zeros(0), torch.tensor([0.0]), torch.linspace(-3, 3, 63),
+               torch.tensor([-0.0, 0.0, float("nan"), 2.0, -1.0, 1e-40]),
+               torch.from_numpy(rng.standard_normal(5000).astype(np.float32))]
+    for bd in borders:
+        bd = bd.to(cuda)
+        assert torch.equal(kbucketize.bucketize(v, bd), ref.bucketize(v, bd))
+        assert torch.equal(kbucketize.bucketize(v[1:].view(-1, 1000), bd),
+                           ref.bucketize(v[1:].view(-1, 1000), bd))

@@ -386,7 +386,7 @@ def test_latency_report_fields():
     dict(moe=MoEConfig(num_experts=4, top_k=2, d_ff=64)),
     dict(mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16, qk_rope_dim=8,
                        v_head_dim=16)),
-    dict(family="ssm", ssm=SSMConfig()),
+    dict(family="hybrid", ssm=SSMConfig(), block_period=2, attn_index=1),
     dict(family="hybrid", block_period=2),
     dict(encoder_layers=2),
     dict(frontend="vision", num_patches=4),
@@ -395,6 +395,21 @@ def test_build_model_raises_for_unported_families(change):
     cfg = dataclasses.replace(SMOKE, **change)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(cfg, device="cpu")
+
+
+def test_build_model_builds_ssm_family():
+    """Family "ssm" (pure Mamba-2) is ported: ``build_model`` returns an
+    ``SSMLM``, and one with a feature the port does not have still
+    raises."""
+    from repro_torch.models import SSMLM
+
+    cfg = dataclasses.replace(SMOKE, family="ssm", ssm=SSMConfig(d_state=16, head_dim=16))
+    model = build_model(cfg, device="cpu")
+    assert isinstance(model, SSMLM)
+    assert sorted(model.abstract_cache(2, 8)) == ["conv_B", "conv_C", "conv_x", "state"]
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        build_model(dataclasses.replace(cfg, moe=MoEConfig(num_experts=4, top_k=2, d_ff=64)),
+                    device="cpu")
 
 
 def test_cuda_entry_points_raise_without_cuda(monkeypatch):
