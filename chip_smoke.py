@@ -15,9 +15,12 @@
    zeros, subnormals, extreme parameters, both tile layouts, long bitmaps,
    every byte shift; for ``embedding_bag`` empty bags, duplicate ids, the
    last row, fractional weights, odd L and E, NaN/inf rows under a mask of
-   0, subnormal rows, a table of more than 2^31 elements).  Then the
+   0, subnormal rows, a table of more than 2^31 elements);
+   ``xor_decrypt`` and ``torch.bitwise_xor`` again in turns.  Then the
    standalone ``sigrid_hash`` and ``bucketize`` (no path launches them)
-   bit-exact at one batch's tiles and on adversarial inputs, and timed.
+   bit-exact at one batch's tiles and on adversarial inputs, and timed
+   (``bucketize`` also with tied, 5,000 sorted and 5,000 unsorted
+   borders).
 4. The serving path: serves every batch of the full-width ``dlrm-paper``
    DPP session through ``dlrm_dpp_batches(CONFIG, 512, device="cuda")``
    with the launch counts set to 0 just before, checks that every data
@@ -48,20 +51,23 @@
    serves the full-width ``qwen3-8b`` (36 layers, d_model 4096, bf16,
    weights drawn on the card from seed 0) through
    ``repro_torch.launch.serve.serve``: batch 4, prompt 1024, 32 decode
-   steps, cache 128.  Checks that ``flash_attention`` launched once per
-   layer of the prefill (36) and that the logits are finite; prints
+   steps, cache 128.  Checks that the tensor-core ``flash_attention_sm90``
+   launched once per layer of the prefill (36), the FMA route not once,
+   and that the logits are finite; prints
    ``prefill_s``, ``decode_tok_per_s``, peak device memory and the device
    idle share of a profiled decode loop.  Then a full-width
    ``BatchingServer`` (4 slots, 4 requests of 16 prompt tokens and 8 new
    ones) and its ``latency_report``.
 7. ``flash_attention`` against its plain version on the card: at q/k/v
-   captured from layers 0 and 35 of that prefill (bf16 as the path runs
-   it, and the same operands in float32 at the float32 tolerance), and
-   on adversarial
-   inputs (S of 1, 63, 65, 1000; T != S; D of 32, 48, 64, 128; GQA groups
-   1 and 4; float32 and bf16; scores of |s| ~ 1e4 whose running max moves
-   at every key tile); times kernel, plain version and
-   ``F.scaled_dot_product_attention`` beside the bound.  Then a depth-2,
+   captured from layers 0 and 35 of that prefill (bf16 through both
+   routes, the tensor-core one the path takes and the FMA one, and the
+   same operands in float32 at the float32 tolerance), and on
+   adversarial inputs through whichever route each takes (S of 1, 63, 65,
+   127, 129, 1000; T != S; D of 32, 48, 64, 128; GQA groups 1, 4 and 8;
+   float32 and bf16; the model's transposed views; scores of |s| ~ 1e4
+   whose running max moves at every key tile); times both routes, the
+   plain version and ``F.scaled_dot_product_attention`` beside the bound,
+   the tensor-core route and SDPA again in turns.  Then a depth-2,
    full-width model from one set of weights on the card and on the CPU:
    logits within tolerance and greedy tokens equal, in float32 and bf16.
 8. The SSM serving path (``_ssm_serve_path``): with the launch counts set
@@ -78,7 +84,8 @@
    1-8 groups, P and N of 16-128, |cs| to 1e4, A = 0, an initial state),
    timed beside its bound.  Then a depth-2, full-width model from one set
    of weights on the card and on the CPU (prompt 512).
-9. Prints one JSON line with every kernel's numbers (nine), the card's
+9. Prints one JSON line with every kernel's numbers (ten: the nine TPU
+   kernels' ports, flash attention by both of its routes), the card's
    line, and last the result line ``{"ok": true, "device": {...}}``.
 
 The device's busy time and idle share in steps 4-6 and 8 come from
@@ -409,6 +416,18 @@ def _kernel_checks(torch, operands, waves):
               f" library_ms={library_ms} bound_ms={max(bytes_ms, ops_ms):.6f}"
               f" call_ms={call_ms:.6f} plain_call_ms={plain_call_ms:.6f}"
               f" library_call_ms={library_call_ms}", flush=True)
+    # xor_decrypt and torch.bitwise_xor in turns: is the kernel's gap to the
+    # library call outside the spread of either?
+    xor = cases[0]
+    turns = {"kernel": [], "library": []}
+    for _ in range(3):
+        turns["kernel"].append(_queued_ms(torch, xor["kernel"]))
+        turns["library"].append(_queued_ms(torch, xor["library"]))
+        turns["library"].append(_queued_ms(torch, xor["library"]))
+        turns["kernel"].append(_queued_ms(torch, xor["kernel"]))
+    rows[0]["turns_ms"] = turns
+    print(f"[kernel] xor_decrypt and torch.bitwise_xor in turns: {json.dumps(turns)}",
+          flush=True)
     # one entry per kernel: fused_transform's two waves (both launched for
     # every stripe) add up, and keep their own numbers under "waves"
     results = []
@@ -1072,10 +1091,14 @@ def _lm_serve_path(torch):
     launches = build.LAUNCHES.snapshot()
     peak = torch.cuda.max_memory_allocated()
     print(f"[lm] main path launches {launches}", flush=True)
-    if launches.get("flash_attention", 0) != CONFIG.num_layers:
-        raise RuntimeError(f"the prefill launched flash_attention "
-                           f"{launches.get('flash_attention', 0)} times, expected "
-                           f"{CONFIG.num_layers}")
+    # the prefill's bf16, D=128 operands take the tensor-core route in every
+    # layer, and the FMA route not once
+    if (launches.get("flash_attention_sm90", 0) != CONFIG.num_layers
+            or launches.get("flash_attention", 0) != 0):
+        raise RuntimeError(f"the prefill launched flash_attention_sm90 "
+                           f"{launches.get('flash_attention_sm90', 0)} times and "
+                           f"flash_attention {launches.get('flash_attention', 0)} times, "
+                           f"expected {CONFIG.num_layers} and 0")
     if not torch.isfinite(out["logits"].float()).all():
         raise RuntimeError("non-finite logits")
     tokens = out["tokens"]
@@ -1143,6 +1166,7 @@ def _lm_serve_path(torch):
         "batch": LM_BATCH, "prompt_len": LM_PROMPT, "decode_steps": LM_DECODE,
         "cache_len": LM_CACHE, "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
         "decode_tok_per_s": out["decode_tok_per_s"],
+        "flash_attention_sm90_launches": launches.get("flash_attention_sm90", 0),
         "flash_attention_launches": launches.get("flash_attention", 0),
         "peak_device_bytes": peak, "profiled_decode_s": decode_wall,
         "decode_device_busy_s": busy, "decode_device_idle_share": _idle_share(busy, decode_wall),
@@ -1182,48 +1206,59 @@ def _lm_serve_path(torch):
 
 def _flash_checks(torch, operands, launches):
     """``flash_attention`` at the main path's operands (layers 0 and 35):
-    in bf16 as the path runs it, within the sweep's bf16 tolerance of the
-    bf16 and the float32 plain versions; and on the same operands cast to
-    float32 (same shapes and strides), within the sweep's float32
-    tolerance of the float32 plain version, which holds the masking,
-    tiling and GQA indexing at main-path sizes to 2e-5.  Then times of
-    kernel, plain version and ``F.scaled_dot_product_attention`` beside
-    the bound (layer 0's operands)."""
+    in bf16 as the path runs it, through the tensor-core route the
+    operands pick and through the FMA route, each within the sweep's bf16
+    tolerance of the bf16 and the float32 plain versions; and on the same
+    operands cast to float32 (same shapes and strides, the FMA route),
+    within the sweep's float32 tolerance of the float32 plain version,
+    which holds the masking, tiling and GQA indexing at main-path sizes to
+    2e-5.  Then times of both routes, the plain version and
+    ``F.scaled_dot_product_attention`` beside the bound (layer 0's
+    operands): one row for each route."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
 
-    worst = 0.0
+    worst = {"flash_attention_sm90": 0.0, "flash_attention": 0.0}
     for layer, (q, k, v) in sorted(operands.items()):
-        got = kflash.flash_attention(q, k, v, causal=True)
+        if kflash.route(q, k, v) != "sm90":
+            raise RuntimeError(f"layer {layer}'s operands do not take the tensor-core route")
         want = ref.flash_attention(q, k, v)
         q32, k32, v32 = q.float(), k.float(), v.float()
-        got32 = kflash.flash_attention(q32, k32, v32, causal=True)
         want32 = ref.flash_attention(q32, k32, v32)
+        got32 = kflash.flash_attention(q32, k32, v32, causal=True)
         torch.cuda.synchronize()
-        err, share = _flash_close(got, want, v, "bfloat16")
-        err_f, share_f = _flash_close(got, want32, v, "bfloat16")
         err32, share32 = _flash_close(got32, want32, v32, "float32")
-        del got32, want32
-        if max(share, share_f, share32) > 1:
-            raise RuntimeError(f"flash_attention: layer {layer}'s operands: bf16 {err:.3e} "
-                               f"(plain bf16), {err_f:.3e} (plain f32), float32 {err32:.3e} "
-                               f"of rms(v); shares of the bound {share:.3f}, {share_f:.3f}, "
-                               f"{share32:.3f}")
-        worst = max(worst, err)
-        print(f"[kernel] flash_attention layer {layer} q {tuple(q.shape)} k "
-              f"{tuple(k.shape)} strides {q.stride()}: bf16 max |kernel - plain| "
-              f"{err:.3e} rms(v) (bf16 plain), {err_f:.3e} (f32 plain), largest share of "
-              f"the per-element bound {FLASH_TOL['bfloat16']:g}*(1 + |want|/rms(v)) "
-              f"{share:.3f} and {share_f:.3f}; float32 kernel vs float32 plain {err32:.3e} "
-              f"rms(v), share of {FLASH_TOL['float32']:g}*(1 + |want|/rms(v)) {share32:.3f}; "
-              f"rms(v) {float(v.float().square().mean().sqrt()):.4f}", flush=True)
+        del got32
+        if share32 > 1:
+            raise RuntimeError(f"flash_attention: layer {layer}'s operands: float32 "
+                               f"{err32:.3e} of rms(v), share of the bound {share32:.3f}")
+        for name, fn in (("flash_attention_sm90", kflash.flash_attention),
+                         ("flash_attention", kflash.flash_attention_fma)):
+            got = fn(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            err, share = _flash_close(got, want, v, "bfloat16")
+            err_f, share_f = _flash_close(got, want32, v, "bfloat16")
+            if max(share, share_f) > 1:
+                raise RuntimeError(f"{name}: layer {layer}'s operands: bf16 {err:.3e} (plain "
+                                   f"bf16), {err_f:.3e} (plain f32) of rms(v); shares of the "
+                                   f"bound {share:.3f}, {share_f:.3f}")
+            worst[name] = max(worst[name], err)
+            print(f"[kernel] {name} layer {layer} q {tuple(q.shape)} k {tuple(k.shape)} "
+                  f"strides {q.stride()}: bf16 max |kernel - plain| {err:.3e} rms(v) (bf16 "
+                  f"plain), {err_f:.3e} (f32 plain), largest share of the per-element bound "
+                  f"{FLASH_TOL['bfloat16']:g}*(1 + |want|/rms(v)) {share:.3f} and "
+                  f"{share_f:.3f}", flush=True)
+        print(f"[kernel] flash_attention layer {layer} float32 (FMA route) vs float32 plain "
+              f"{err32:.3e} rms(v), share of {FLASH_TOL['float32']:g}*(1 + |want|/rms(v)) "
+              f"{share32:.3f}; rms(v) {float(v.float().square().mean().sqrt()):.4f}",
+              flush=True)
+        del want, want32, q32, k32, v32
 
     q, k, v = operands[LM_CAPTURE_LAYERS[0]]
     b, h, s, d = q.shape
     t = k.shape[2]
-    kernel = lambda: kflash.flash_attention(q, k, v, causal=True)
     plain = lambda: ref.flash_attention(q, k, v)
     library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
     lib_err, lib_share = _flash_close(library(), plain(), v, "bfloat16")
@@ -1236,44 +1271,69 @@ def _flash_checks(torch, operands, launches):
     flops = 4 * d * pairs
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_OPS_PER_S * 1e3
+    shape = (f"q {tuple(q.shape)} k/v {tuple(k.shape)} {str(q.dtype).split('.')[-1]} causal "
+             f"(layer {LM_CAPTURE_LAYERS[0]} of the qwen3-8b prefill)")
+    plain_ms = _queued_ms(torch, plain, iters=5)
+    plain_call_ms = _call_ms(torch, plain, iters=5)
+    library_ms = _queued_ms(torch, library)
+    library_call_ms = _call_ms(torch, library, iters=20)
+    rows = []
     # device times from CUDA events around calls queued behind a sleep:
     # after the profiled decode loop, torch.profiler's sums for these calls
     # came out below the float32 FMA floor of the kernel's work, or empty
-    row = dict(
-        name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:62",
-        shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} {str(q.dtype).split('.')[-1]} causal "
-              f"(layer {LM_CAPTURE_LAYERS[0]} of the qwen3-8b prefill)",
-        launches=launches["flash_attention"], max_abs_err=worst,
-        ms=_queued_ms(torch, kernel), plain_ms=_queued_ms(torch, plain, iters=5),
-        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=_queued_ms(torch, library),
-        call_ms=_call_ms(torch, kernel, iters=20), plain_call_ms=_call_ms(torch, plain, iters=5),
-        library_call_ms=_call_ms(torch, library, iters=20),
-    )
-    print(f"[kernel] flash_attention {row['shape']}: kernel_ms={row['ms']:.6f} "
-          f"plain_ms={row['plain_ms']:.6f} library_ms={row['library_ms']:.6f} "
-          f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}: {flops} flops, {nbytes} bytes) "
-          f"call_ms={row['call_ms']:.6f} plain_call_ms={row['plain_call_ms']:.6f} "
-          f"library_call_ms={row['library_call_ms']:.6f}", flush=True)
-    return row
+    for name, source, fn in (
+            ("flash_attention_sm90", "src/repro_torch/csrc/flash_attention_sm90.cu",
+             kflash.flash_attention_sm90),
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             kflash.flash_attention_fma)):
+        kernel = lambda fn=fn: fn(q, k, v, causal=True)
+        row = dict(
+            name=name, route="cuda", source=source,
+            replaces="src/repro/kernels/flash_attention.py:62", shape=shape,
+            launches=launches.get(name, 0), max_abs_err=worst[name],
+            ms=_queued_ms(torch, kernel), plain_ms=plain_ms,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=library_ms, call_ms=_call_ms(torch, kernel, iters=20),
+            plain_call_ms=plain_call_ms, library_call_ms=library_call_ms,
+        )
+        rows.append(row)
+        print(f"[kernel] {name} {shape}: kernel_ms={row['ms']:.6f} "
+              f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
+              f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}: {flops} flops, {nbytes} "
+              f"bytes) call_ms={row['call_ms']:.6f} plain_call_ms={plain_call_ms:.6f} "
+              f"library_call_ms={library_call_ms:.6f}", flush=True)
+    # the two routes and SDPA again, in turns, for the spread within this run
+    turns = {"flash_attention_sm90": [], "library": []}
+    for _ in range(3):
+        turns["flash_attention_sm90"].append(
+            _queued_ms(torch, lambda: kflash.flash_attention_sm90(q, k, v, causal=True)))
+        turns["library"].append(_queued_ms(torch, library))
+    rows[0]["turns_ms"] = turns
+    print(f"[kernel] flash_attention_sm90 and SDPA in turns: {json.dumps(turns)}", flush=True)
+    return rows
 
 
 def _flash_adversarial_checks(torch) -> None:
     """``flash_attention`` against its plain version on inputs the main
-    path never makes: S of 1, 63, 65 and 1000, T != S (full attention),
-    head dims 32, 48 (padded to 64), 64 and 128, GQA groups 1 and 4, both
-    types; and scores of |s| ~ 1e4 from integer q and k at D=64 (every
-    score exact in float32), one case with a key ramp that moves each
-    row's running max at every key tile.  bf16 results are held to the
+    path never makes, through whichever route each takes: S of 1, 63, 65
+    and 1000, T != S (full attention), head dims 32, 48 (padded to 64), 64
+    and 128, GQA groups 1 and 4, both types; and scores of |s| ~ 1e4 from
+    integer q and k at D=64 (every score exact in float32), one case with a
+    key ramp that moves each row's running max at every key tile.  Then the
+    tensor-core route at its edges: S and T of 1, 127, 129 and 1000, T != S
+    with full attention, D 64 and 128, GQA groups 1, 4 and 8, and the
+    model's transposed (B, S, H, D) views.  bf16 results are held to the
     float32 plain version on the same operands as well."""
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device="cuda").manual_seed(13)
+    routes = {"sm90": 0, "fma": 0}
 
     def check(name, q, k, v, causal):
         dtype = str(q.dtype).split(".")[-1]
+        routes[kflash.route(q, k, v)] += 1
         got = kflash.flash_attention(q, k, v, causal=causal)
         want32 = ref.flash_attention(q.float(), k.float(), v.float(), causal=causal)
         wants = [("f32 plain", want32)]
@@ -1284,8 +1344,17 @@ def _flash_adversarial_checks(torch) -> None:
             err, share = _flash_close(got, want, v, dtype)
             if share > 1:
                 raise RuntimeError(f"flash_attention {name} {tuple(q.shape)} k "
-                                   f"{tuple(k.shape)} {dtype} causal={causal}: {err:.3e} "
-                                   f"rms(v) from the {label} version")
+                                   f"{tuple(k.shape)} {dtype} causal={causal} route "
+                                   f"{kflash.route(q, k, v)}: {err:.3e} rms(v) from the "
+                                   f"{label} version")
+
+    def normal(b, h, kvh, s, t, d, dtype, model_layout=False):
+        if model_layout:
+            shapes = ((b, s, h, d), (b, t, kvh, d), (b, t, kvh, d))
+            return [torch.randn(x, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+                    for x in shapes]
+        return [torch.randn(x, generator=gen, device="cuda").to(dtype)
+                for x in ((b, h, s, d), (b, kvh, t, d), (b, kvh, t, d))]
 
     shapes = ((1, 2, 2, 1, 1, 32, True), (2, 4, 1, 63, 63, 64, True),
               (2, 8, 2, 65, 65, 128, True), (1, 4, 4, 1000, 1000, 128, True),
@@ -1293,10 +1362,7 @@ def _flash_adversarial_checks(torch) -> None:
               (3, 4, 1, 130, 77, 48, False), (1, 4, 1, 200, 130, 32, True))
     for dtype in (torch.float32, torch.bfloat16):
         for b, h, kvh, s, t, d, causal in shapes:
-            q = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
-            k = torch.randn((b, kvh, t, d), generator=gen, device="cuda").to(dtype)
-            v = torch.randn((b, kvh, t, d), generator=gen, device="cuda").to(dtype)
-            check("normal", q, k, v, causal)
+            check("normal", *normal(b, h, kvh, s, t, d, dtype), causal)
         # large scores: integers in [-128, 128] are exact in bf16, every dot
         # (< 2^24) exact in float32, and the scale 1/8 exact at D=64
         q = torch.randint(-128, 129, (2, 4, 200, 64), generator=gen, device="cuda")
@@ -1313,9 +1379,33 @@ def _flash_adversarial_checks(torch) -> None:
         k = ramp[None, None, :, None].expand(1, 2, 1000, 64).float()
         v = torch.randn((1, 2, 1000, 64), generator=gen, device="cuda")
         check("large", q.to(dtype), k.to(dtype), v.to(dtype), True)
-    print(f"[adversarial] flash_attention S in (1, 63, 65, 130, 200, 1000), T != S, D in "
-          f"(32, 48, 64, 128), groups 1/2/4, f32 and bf16, |s| up to {s_max:.0f} and a "
-          f"ramp to 16000: within tolerance", flush=True)
+    fma_cases = routes["fma"]
+    # the tensor-core route at its edges: ragged S and T against its 128-row
+    # tiles, T != S, D 64 and 128, GQA groups 1, 4 and 8, the model layout
+    edges = [(1, 8, 8, s, s, 128, True) for s in (1, 127, 129, 1000)]
+    edges += [(2, 8, 2, 127, 129, 64, False), (1, 8, 1, 129, 1000, 128, False),
+              (2, 8, 8, 1000, 1, 64, False), (1, 8, 2, 1, 1000, 128, False),
+              (2, 4, 1, 129, 300, 128, True), (1, 8, 1, 1000, 127, 64, True)]
+    for b, h, kvh, s, t, d, causal in edges:
+        for layout in (False, True):
+            ops = normal(b, h, kvh, s, t, d, torch.bfloat16, model_layout=layout)
+            if kflash.route(*ops) != "sm90":
+                raise RuntimeError(f"edge case {(b, h, kvh, s, t, d)} took the FMA route")
+            check("edge", *ops, causal)
+    # the |s| ~ 1e4 integer scores and the ramp at D = 128 on the tensor cores
+    q = torch.randint(-128, 129, (1, 8, 300, 128), generator=gen, device="cuda")
+    k = torch.randint(-128, 129, (1, 1, 300, 128), generator=gen, device="cuda")
+    v = torch.randn((1, 1, 300, 128), generator=gen, device="cuda")
+    check("large", q.bfloat16(), k.bfloat16(), v.bfloat16(), True)
+    q = torch.full((1, 4, 1000, 128), 16.0, device="cuda")
+    k = ramp[None, None, :, None].expand(1, 1, 1000, 128).float()
+    v = torch.randn((1, 1, 1000, 128), generator=gen, device="cuda")
+    check("large", q.bfloat16(), k.bfloat16(), v.bfloat16(), True)
+    print(f"[adversarial] flash_attention S in (1, 63, 65, 127, 129, 130, 200, 300, 1000), "
+          f"T != S, D in (32, 48, 64, 128), groups 1/2/4/8, f32 and bf16, the model's "
+          f"transposed views, |s| up to {s_max:.0f} and a ramp to 16000: within tolerance "
+          f"({routes['sm90']} cases on the tensor-core route, {fma_cases} on the FMA route)",
+          flush=True)
 
 
 def _lm_card_vs_cpu(torch):
@@ -1446,6 +1536,8 @@ def _standalone_checks(torch, operands):
             plain_call_ms=_call_ms(torch, c["plain"], iters=20),
             library_call_ms=_call_ms(torch, c["library"]) if c["library"] else None,
         )
+        if c["name"] == "bucketize":
+            row["more_borders"] = _bucketize_more_borders(torch, dense)
         rows.append(row)
         print(f"[kernel] {c['name']} {c['shape']}: bit-exact, kernel_ms={ms:.6f} "
               f"plain_ms={plain_ms:.6f} library_ms={library_ms} "
@@ -1455,12 +1547,50 @@ def _standalone_checks(torch, operands):
     return rows
 
 
+def _bucketize_more_borders(torch, dense):
+    """``bucketize`` on the same dense tile with other borders, bit-exact and
+    timed beside ``torch.bucketize`` where the borders are sorted: 63 sorted
+    borders with ties (runs of equal borders and -0.0/+0.0 pairs), 5,000
+    sorted ones and 5,000 unsorted ones (past the 4,096 the first kernel
+    held in shared memory)."""
+    import numpy as np
+
+    from repro_torch.kernels import bucketize as kbucketize
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(23)
+    lin = np.linspace(-3, 3, 63).astype(np.float32)
+    ties = np.sort(np.concatenate([lin[:36], np.repeat(lin[36:43], 3),
+                                   [-0.0, 0.0, -0.0, 0.0, 0.0, -0.0]]).astype(np.float32),
+                   kind="stable")
+    many = rng.standard_normal(5000).astype(np.float32) * 2
+    cases = {"63 with ties": ties, "5000 sorted": np.sort(many), "5000 unsorted": many}
+    out = {}
+    for name, b in cases.items():
+        bd = torch.from_numpy(b).cuda()
+        want = ref.bucketize(dense, bd)
+        if not torch.equal(kbucketize.bucketize(dense, bd), want):
+            raise RuntimeError(f"bucketize: {name} borders differ from the plain version")
+        sorted_ = bool((bd[:-1] <= bd[1:]).all())
+        ok = ~torch.isnan(dense)
+        if sorted_ and not torch.equal(torch.bucketize(dense, bd, out_int32=True)[ok], want[ok]):
+            raise RuntimeError(f"bucketize: torch.bucketize disagrees on {name} borders")
+        out[name] = dict(
+            ms=_queued_ms(torch, lambda: kbucketize.bucketize(dense, bd)),
+            library_ms=(_queued_ms(torch, lambda: torch.bucketize(dense, bd, out_int32=True))
+                        if sorted_ else None))
+    print(f"[kernel] bucketize other borders on the same tile, bit-exact: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
 def _standalone_adversarial_checks(torch) -> None:
     """``sigrid_hash`` and ``bucketize`` bit-exact on inputs the data path
     never makes: INT_MIN, -1 and 0 ids, salts 0 and 2^32-1, max_value 1,
     2^31-1, 2^31+5 and 2^32-1 (remainders above INT_MAX wrap negative),
     odd and unaligned tiles; NaN, infinite, subnormal and signed-zero values
-    tied with borders, NaN and unsorted borders, 0, 1 and 1000 borders."""
+    tied with borders, NaN and unsorted borders, sorted borders with ties,
+    0, 1, 1000 and 5000 borders (sorted and unsorted)."""
     import numpy as np
 
     from repro_torch.kernels import bucketize as kbucketize
@@ -1494,14 +1624,19 @@ def _standalone_adversarial_checks(torch) -> None:
         "NaN": torch.tensor([-1.0, float("nan"), 0.5, float("nan")]),
         "unsorted": torch.tensor([2.0, -1.0, 0.0, -float("inf"), float("inf"), 0.5]),
         "1000": torch.from_numpy(np.sort(rng.standard_normal(1000).astype(np.float32))),
+        "ties": torch.tensor([-2.0, -1.0, -1.0, -1.0, -0.0, 0.0, -0.0, 0.0, 1e-40, 1.0, 1.0]),
+        "5000 sorted": torch.from_numpy(np.sort(rng.standard_normal(5000).astype(np.float32))
+                                        .round(1)),
+        "5000 unsorted": torch.from_numpy(rng.standard_normal(5000).astype(np.float32)),
     }
     for name, bd in borders.items():
         bd = bd.cuda()
-        for t in (v, v[1:], v[:50_000].view(100, 500)):
+        for t in (v, v[1:], v[2:], v[:50_000].view(100, 500)):
             if not torch.equal(kbucketize.bucketize(t, bd), ref.bucketize(t, bd)):
                 raise RuntimeError(f"bucketize {name} borders {tuple(t.shape)} differs")
-    print("[adversarial] bucketize NaN/inf/subnormal/signed-zero values; no, one, "
-          "signed-zero, NaN, unsorted and 1000 borders: bit-exact", flush=True)
+    print("[adversarial] bucketize NaN/inf/subnormal/signed-zero values, aligned and "
+          "unaligned tiles; no, one, signed-zero, NaN, unsorted, 1000 sorted, tied, and 5000 "
+          "sorted and unsorted borders: bit-exact", flush=True)
 
 
 def _ssd_bound(x, b_, chunk):
@@ -2047,7 +2182,7 @@ def main() -> int:
     lm_launches, lm_operands, lm = _lm_serve_path(torch)
     print(f"[phase] LM serving path {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
-    results.append(_flash_checks(torch, lm_operands, lm_launches))
+    results.extend(_flash_checks(torch, lm_operands, lm_launches))
     del lm_operands
     torch.cuda.empty_cache()
     _flash_adversarial_checks(torch)

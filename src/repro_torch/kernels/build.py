@@ -10,8 +10,9 @@ the module is imported: the first launch builds, under a lock, because
 several DPP worker threads reach their first launch together.
 
 Each C entry point takes device pointers, sizes and the CUDA stream, and
-returns ``cudaGetLastError()`` after its launch; ``check`` raises on a
-nonzero code.  No ``--use_fast_math`` and no ``--ftz=true``: the float
+returns ``cudaGetLastError()`` after its launch (the tensor-core flash
+attention returns minus a ``CUresult`` where the driver refuses one of
+its TMA tensor maps); ``check`` raises on a nonzero code.  No ``--use_fast_math`` and no ``--ftz=true``: the float
 ops must keep subnormals exactly as the plain versions do.
 """
 from __future__ import annotations
@@ -53,6 +54,12 @@ SIGNATURES = {
         _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
         _I32, _F32, _I32, _P,
     ),
+    "flash_attention_sm90_launch": (
+        _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
+        _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+        _I32, _F32, _P,
+    ),
+    "flash_attention_sm90_tile_launch": (_P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _P),
     "ssd_chunk_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
         _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
@@ -142,6 +149,10 @@ def library() -> ctypes.CDLL:
 
 
 def check(name: str, err: int) -> None:
+    """Raise on a C entry point's nonzero code: a ``cudaError_t``, or minus
+    a ``CUresult`` where the driver refused a TMA tensor map."""
+    if err < 0:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 

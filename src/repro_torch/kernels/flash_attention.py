@@ -1,4 +1,4 @@
-"""CUDA kernel: flash attention forward (``csrc/flash_attention.cu``).
+"""CUDA kernels: flash attention forward, two routes.
 
 Counterpart of the reference's Pallas ``repro.kernels.flash_attention``:
 blocked online-softmax attention, causal or full, float32 scores and
@@ -12,23 +12,70 @@ of a prefill as transposed views, once per layer, and neither a
 transpose nor the GQA expansion is materialized; the output takes q's
 layout.
 
-The wrapper takes CUDA tensors only, checks them, allocates the output,
-launches on the current stream and counts the launch in
-``build.LAUNCHES``; ``kernels.ops`` dispatches to it, and the plain
-version lives in ``kernels.ref``.
+Two kernels compute it; ``route`` picks one from the operands before the
+launch:
+
+* ``"sm90"`` (``csrc/flash_attention_sm90.cu``): wgmma on the tensor
+  cores, Q/K/V tiles fed by TMA.  It takes bf16 operands with head dim 64
+  or 128 whose views a TMA tensor map accepts (``tma_strides``: the last
+  dim contiguous, every other byte stride a positive multiple of 16, the
+  base 16-byte aligned).  Counted as ``flash_attention_sm90``.
+* ``"fma"`` (``csrc/flash_attention.cu``): float32 FMAs on the CUDA
+  cores, any head dim up to 128, float32 or bf16, any strides with a
+  contiguous last dim.  It takes every other call.  Counted as
+  ``flash_attention``.
+
+The rule is a dispatch on the operands, not a fallback: a call that the
+tensor-core route takes raises if that kernel fails to build or launch.
+``flash_attention_fma`` and ``flash_attention_sm90`` launch one route
+each (the latter raises on operands it does not take), so the two can be
+timed on the same operands.
+
+The wrappers take CUDA tensors only, check them, allocate the output,
+launch on the current stream and count the launch in ``build.LAUNCHES``;
+``kernels.ops`` dispatches to ``flash_attention``, and the plain version
+lives in ``kernels.ref``.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 128
-_BLOCK_Q = 64                 # query rows per block (grid.y counts tiles)
+SM90_HEAD_DIMS = (64, 128)
+TMA_ALIGN = 16                # bytes: TMA's stride and base alignment
+_BLOCK_Q = 64                 # FMA route: query rows per block (grid.y counts tiles)
+SM90_TILE = 128               # tensor-core route: query rows per block and keys per tile
+
+
+def tma_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
+    """The byte strides of a (B, H, S, D) view's position, head and batch
+    dims, as its tensor map takes them (dims innermost first: D, S, H, B),
+    or None where TMA refuses the view: a last dim that is not contiguous,
+    a base that is not 16-byte aligned, or a stride that is not a positive
+    multiple of 16 bytes."""
+    if t.dim() != 4 or t.stride(3) != 1 or t.data_ptr() % TMA_ALIGN:
+        return None
+    strides = tuple(t.stride(i) * t.element_size() for i in (2, 1, 0))
+    if any(s <= 0 or s % TMA_ALIGN for s in strides):
+        return None
+    return strides
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``"sm90"`` for bf16 operands with D in (64, 128) whose views TMA
+    accepts, else ``"fma"``.  Reads only dtypes, shapes, strides and base
+    addresses, so it decides the same on any device."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in SM90_HEAD_DIMS:
+        return "fma"
+    if any(tma_strides(t) is None for t in (q, k, v)):
+        return "fma"
+    return "sm90"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -36,11 +83,66 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q (B, H, S, D), k and v (B, KVH, T, D) with H % KVH == 0, float32
     or bfloat16, any strides with a contiguous last dim -> (B, H, S, D)
-    in q's layout (``torch.empty_like``).  The score scale defaults to
-    1/sqrt(D)."""
-    b, h, s, d = _check(q, k, v)
-    out = torch.empty_like(q)
+    in q's layout (``torch.empty_like``), through the route ``route``
+    picks.  The score scale defaults to 1/sqrt(D)."""
+    _check(q, k, v)
+    launch = _launch_sm90 if route(q, k, v) == "sm90" else _launch_fma
+    return launch(q, k, v, causal, scale)
+
+
+def flash_attention_fma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
+    """The FMA route, whatever ``route`` would pick."""
+    _check(q, k, v)
+    return _launch_fma(q, k, v, causal, scale)
+
+
+def flash_attention_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
+    """The tensor-core route; raises on operands it does not take."""
+    _check(q, k, v)
+    if route(q, k, v) != "sm90":
+        raise ValueError(f"flash_attention_sm90: takes bf16 with D in {SM90_HEAD_DIMS} and "
+                         f"views TMA accepts, got {q.dtype} D={q.shape[-1]} strides "
+                         f"{q.stride()}, {k.stride()}, {v.stride()}")
+    return _launch_sm90(q, k, v, causal, scale)
+
+
+def flash_attention_sm90_tile(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core route's two products on one tile, for tests: bf16 q,
+    k, v of (128, D), D in (64, 128), rows 16-byte aligned -> s = q.k^T
+    (128, 128) and o = bf16(s).v (128, D), both float32, with no scale,
+    mask or softmax."""
+    d = q.shape[-1]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
+            raise ValueError(f"flash_attention_sm90_tile {name}: expected a CUDA bf16 "
+                             f"tensor, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != (SM90_TILE, d) or d not in SM90_HEAD_DIMS:
+            raise ValueError(f"flash_attention_sm90_tile {name}: expected "
+                             f"({SM90_TILE}, 64 or 128), got {tuple(t.shape)}")
+        if tma_strides(t[None, None]) is None:
+            raise ValueError(f"flash_attention_sm90_tile {name}: strides {t.stride()} or "
+                             "base not 16-byte aligned")
+    s = torch.empty((SM90_TILE, SM90_TILE), dtype=torch.float32, device=q.device)
+    o = torch.empty((SM90_TILE, d), dtype=torch.float32, device=q.device)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_sm90_tile_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(), d,
+            *(t.stride(0) * 2 for t in (q, k, v)),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check("flash_attention_sm90_tile", err)
+    build.LAUNCHES.add("flash_attention_sm90_tile")
+    return s, o
+
+
+def _launch_fma(q, k, v, causal, scale) -> torch.Tensor:
+    b, h, s, d = q.shape
     t, kvh = k.shape[2], k.shape[1]
+    out = torch.empty_like(q)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     lib = build.library()
@@ -54,6 +156,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         )
     build.check("flash_attention", err)
     build.LAUNCHES.add("flash_attention")
+    return out
+
+
+def _launch_sm90(q, k, v, causal, scale) -> torch.Tensor:
+    b, h, s, d = q.shape
+    t, kvh = k.shape[2], k.shape[1]
+    out = torch.empty_like(q)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    # (position, head, batch) byte strides -> the C order (batch, position, head)
+    strides = []
+    for x in (q, k, v):
+        ss, sh, sb = tma_strides(x)
+        strides += [sb, ss, sh]
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_sm90_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, s, t, h, kvh, d, *strides,
+            *(out.stride(i) for i in (0, 2, 1)),
+            int(causal), ctypes.c_float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    build.check("flash_attention_sm90", err)
+    build.LAUNCHES.add("flash_attention_sm90")
     return out
 
 

@@ -76,9 +76,11 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor, *,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
     """Attention over (B, H, S, D) q and (B, KVH, T, D) k, v -> (B, H, S, D):
-    the dense plain version on a CPU tensor, the blocked online-softmax
-    kernel on a CUDA tensor (any strides, read in place).  The score
-    scale defaults to 1/sqrt(D)."""
+    the dense plain version on a CPU tensor, a blocked online-softmax
+    kernel on a CUDA tensor (any strides, read in place): the tensor-core
+    one for bf16 with D of 64 or 128 and TMA-aligned views, the FMA one
+    otherwise (``kernels.flash_attention.route``).  The score scale
+    defaults to 1/sqrt(D)."""
     if _on_cpu(q):
         return ref.flash_attention(q, k, v, causal=causal, scale=scale)
     return _flash.flash_attention(q, k, v, causal=causal, scale=scale)

@@ -36,12 +36,15 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, dtype):
     """GQA (8 query heads over 2 KV heads), S not a multiple of the
-    64-row tile, T != S, causal and full, within the sweep's tolerance."""
+    tiles, T != S, causal and full, within the sweep's tolerance, through
+    the route the operands pick (float32: the FMA kernel; bf16 at D=64:
+    the tensor-core kernel), counted under that route's name."""
     rng = np.random.default_rng(1)
     q = torch.from_numpy(rng.standard_normal((2, 8, 65, 64)).astype(np.float32)).to(cuda, dtype)
     k, v = (torch.from_numpy(rng.standard_normal((2, 2, 100, 64)).astype(np.float32))
             .to(cuda, dtype) for _ in range(2))
-    before = build.LAUNCHES.snapshot().get("flash_attention", 0)
+    name = {"sm90": "flash_attention_sm90", "fma": "flash_attention"}[kflash.route(q, k, v)]
+    before = build.LAUNCHES.snapshot().get(name, 0)
     tol = SWEEP_TOL[dtype]
     for causal in (True, False):
         got = kflash.flash_attention(q, k, v, causal=causal)
@@ -49,7 +52,7 @@ def test_flash_kernel_matches_plain(cuda, dtype):
         torch.cuda.synchronize()
         np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                    rtol=tol, atol=tol)
-    assert build.LAUNCHES.snapshot()["flash_attention"] == before + 2
+    assert build.LAUNCHES.snapshot()[name] == before + 2
 
 
 @pytest.mark.cuda
@@ -68,6 +71,98 @@ def test_flash_kernel_gqa_layout_matches_plain(cuda):
     torch.cuda.synchronize()
     assert got.is_contiguous()
     assert torch.equal(got, want)
+
+
+def _bf16(cuda, rng, shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_sm90_tile_products(cuda, d):
+    """One tile of the tensor-core kernel's two wgmma products against
+    float32 products of the same bf16 operands: s = q.k^T (both operands
+    K-major through 128-byte-swizzle descriptors) and o = bf16(s).v (the
+    accumulator fragment re-used as the A registers, v N-major).  Each
+    product is exact a term in float32 and summed in another order, so
+    within 1e-4 of the reference's rms; a wrong descriptor or fragment
+    layout moves elements by about the rms itself.  Rows of q are read
+    from a wider tensor (a 16-byte-aligned row stride)."""
+    rng = np.random.default_rng(3 + d)
+    q = _bf16(cuda, rng, (128, d + 64))[:, 32:32 + d]
+    k, v = _bf16(cuda, rng, (128, d)), _bf16(cuda, rng, (128, d))
+    s, o = kflash.flash_attention_sm90_tile(q, k, v)
+    torch.cuda.synchronize()
+    want_s = q.float() @ k.float().T
+    want_o = s.to(torch.bfloat16).float() @ v.float()
+    for got, want in ((s, want_s), (o, want_o)):
+        rms = float(want.square().mean().sqrt())
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * rms, (err, rms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kvh,s,t,d,causal", [
+    (2, 8, 2, 1000, 1000, 128, True),     # ragged last tiles, GQA 4
+    (1, 4, 4, 129, 300, 64, False),       # T != S, full attention, no GQA
+    (1, 8, 1, 127, 127, 128, True),       # GQA 8, one partial tile
+])
+def test_flash_sm90_matches_plain(cuda, b, h, kvh, s, t, d, causal):
+    """The tensor-core route, whole, against ``ref.flash_attention`` in bf16
+    within the sweep's tolerance."""
+    rng = np.random.default_rng(s + t + d)
+    q, k, v = _bf16(cuda, rng, (b, h, s, d)), _bf16(cuda, rng, (b, kvh, t, d)), \
+        _bf16(cuda, rng, (b, kvh, t, d))
+    assert kflash.route(q, k, v) == "sm90"
+    got = kflash.flash_attention_sm90(q, k, v, causal=causal)
+    want = ref.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = SWEEP_TOL[torch.bfloat16]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_sm90_model_layout_matches_contiguous(cuda):
+    """The main path's transposed (B, S, H, D) / (B, T, KVH, D) bf16 views,
+    read in place through the tensor maps' strides, give bit for bit what
+    contiguous (B, H, S, D) copies give, and the output keeps the model's
+    layout."""
+    rng = np.random.default_rng(6)
+    q = _bf16(cuda, rng, (2, 200, 16, 128))
+    k, v = _bf16(cuda, rng, (2, 200, 4, 128)), _bf16(cuda, rng, (2, 200, 4, 128))
+    views = [x.transpose(1, 2) for x in (q, k, v)]
+    assert kflash.route(*views) == "sm90"
+    got = kflash.flash_attention(*views, causal=True).transpose(1, 2)
+    want = kflash.flash_attention(*(x.contiguous() for x in views),
+                                  causal=True).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_route_counts(cuda):
+    """bf16 at D=128 launches the tensor-core kernel; float32 and bf16 at
+    D=48 launch the FMA kernel; each counts under its own name only.  The
+    tensor-core wrapper refuses what its route does not take."""
+    rng = np.random.default_rng(8)
+    cases = [(torch.bfloat16, 128, "flash_attention_sm90"),
+             (torch.float32, 128, "flash_attention"), (torch.bfloat16, 48, "flash_attention")]
+    for dtype, d, name in cases:
+        q = torch.from_numpy(rng.standard_normal((1, 4, 40, d)).astype(np.float32)).to(cuda, dtype)
+        k = torch.from_numpy(rng.standard_normal((1, 2, 40, d)).astype(np.float32)).to(cuda, dtype)
+        before = build.LAUNCHES.snapshot()
+        kflash.flash_attention(q, k, k)
+        torch.cuda.synchronize()
+        after = build.LAUNCHES.snapshot()
+        moved = {n for n in ("flash_attention", "flash_attention_sm90")
+                 if after.get(n, 0) != before.get(n, 0)}
+        assert moved == {name}
+        assert after[name] == before.get(name, 0) + 1
+        if name == "flash_attention":
+            with pytest.raises(ValueError, match="flash_attention_sm90: takes bf16"):
+                kflash.flash_attention_sm90(q, k, k)
 
 
 # ssd_chunk_forward against the sequential float32 recurrence, per element
@@ -160,17 +255,24 @@ def test_sigrid_hash_kernel_bit_exact(cuda):
 @pytest.mark.cuda
 def test_bucketize_kernel_bit_exact(cuda):
     """NaN, infinite, subnormal and signed-zero values; NaN, unsorted and
-    signed-zero borders; 0, 1, 63 and 5000 borders (more than one shared
-    memory slice)."""
+    signed-zero borders; sorted borders with ties (runs of equal borders,
+    -0.0/+0.0 pairs), searched rather than counted; 0, 1, 63 and 5000
+    borders (sorted and not); value tensors 16- and 8-byte aligned with
+    even lengths, aligned with a ragged tail, and unaligned."""
     rng = np.random.default_rng(5)
     v = torch.from_numpy((rng.standard_normal(3001) * 3).astype(np.float32)).to(cuda)
     v[:8] = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1e-40,
                           -1e-40, 1.0])
+    v[8:40] = torch.tensor([-1.0, 0.0, -0.0, 1.0, 2.0, -2.0, 1e-40, 3.0] * 4)   # on the ties
+    many = rng.standard_normal(5000).astype(np.float32)
     borders = [torch.zeros(0), torch.tensor([0.0]), torch.linspace(-3, 3, 63),
                torch.tensor([-0.0, 0.0, float("nan"), 2.0, -1.0, 1e-40]),
-               torch.from_numpy(rng.standard_normal(5000).astype(np.float32))]
+               torch.tensor([-2.0, -1.0, -1.0, -1.0, -0.0, 0.0, -0.0, 0.0, 1e-40, 1.0, 1.0,
+                             2.0, 2.0]),
+               torch.from_numpy(np.sort(many).round(1)),
+               torch.from_numpy(many)]
+    values = (v, v[:3000], v[4:], v[2:3000], v[1:].view(-1, 1000))
     for bd in borders:
         bd = bd.to(cuda)
-        assert torch.equal(kbucketize.bucketize(v, bd), ref.bucketize(v, bd))
-        assert torch.equal(kbucketize.bucketize(v[1:].view(-1, 1000), bd),
-                           ref.bucketize(v[1:].view(-1, 1000), bd))
+        for t in values:
+            assert torch.equal(kbucketize.bucketize(t, bd), ref.bucketize(t, bd))
