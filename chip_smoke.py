@@ -73,20 +73,25 @@
 8. The SSM serving path (``_ssm_serve_path``): with the launch counts set
    to 0, serves the full-width ``mamba2-2.7b`` (64 layers, d_model 2560,
    80 heads, d_state 128, bf16, seed 0) through the same ``serve`` (batch
-   4, prompt 1024 = 4 chunks, 32 decode steps); checks that
-   ``ssd_chunk_forward`` launched once per layer (64) and nothing else,
-   and that the logits are finite; prints ``prefill_s``,
+   4, prompt 1024 = 4 chunks, 32 decode steps); checks that the
+   tensor-core ``ssd_chunk_forward_sm90`` launched once per layer (64),
+   the FMA route not once, and nothing else, and that the logits are
+   finite; prints ``prefill_s``,
    ``decode_tok_per_s``, peak memory, the bounds, and a profiled 4-step
    decode window; then a 4-slot ``BatchingServer``.  ``ssd_chunk_forward``
    against its plain version (the sequential float32 recurrence) at the
-   scan operands of layers 0 and 63 (bf16 and float32, y and the final
-   state) and on adversarial inputs (S from 1 to 1000 with ragged chunks,
-   1-8 groups, P and N of 16-128, |cs| to 1e4, A = 0, an initial state),
-   timed beside its bound.  Then a depth-2, full-width model from one set
-   of weights on the card and on the CPU (prompt 512).
-9. Prints one JSON line with every kernel's numbers (ten: the nine TPU
-   kernels' ports, flash attention by both of its routes), the card's
-   line, and last the result line ``{"ok": true, "device": {...}}``.
+   scan operands of layers 0 and 63 (bf16 through both routes, float32
+   through the FMA route, y and the final state) and on adversarial
+   inputs through the route each takes (S from 1 to 1000 with ragged
+   chunks, 1-8 groups, P and N of 16-128, chunks of 64-256, |cs| to 1e4,
+   A = 0, an initial state; bf16 cases that must take the tensor-core
+   route), both routes timed beside the bound and in turns.  Then a
+   depth-2, full-width model from one set of weights on the card and on
+   the CPU (prompt 512).
+9. Prints one JSON line with every kernel's numbers (eleven: the nine TPU
+   kernels' ports, flash attention and the SSD scan by both of their
+   routes), the card's line, and last the result line
+   ``{"ok": true, "device": {...}}``.
 
 The device's busy time and idle share in steps 4-6 and 8 come from
 torch.profiler; where it records no device activity they print as not
@@ -1710,9 +1715,10 @@ def _ssm_serve_path(torch):
     launches = build.LAUNCHES.snapshot()
     peak = torch.cuda.max_memory_allocated()
     print(f"[ssm] main path launches {launches}", flush=True)
-    if launches != {"ssd_chunk_forward": CONFIG.num_layers}:
-        raise RuntimeError(f"the prefill launched {launches}, expected ssd_chunk_forward "
-                           f"{CONFIG.num_layers} times and nothing else")
+    if launches != {"ssd_chunk_forward_sm90": CONFIG.num_layers}:
+        raise RuntimeError(f"the prefill launched {launches}, expected the tensor-core "
+                           f"ssd_chunk_forward_sm90 {CONFIG.num_layers} times, the FMA "
+                           "route's ssd_chunk_forward not once, and nothing else")
     if not torch.isfinite(out["logits"].float()).all():
         raise RuntimeError("non-finite logits")
     tokens = out["tokens"]
@@ -1792,6 +1798,7 @@ def _ssm_serve_path(torch):
         "batch": LM_BATCH, "prompt_len": LM_PROMPT, "decode_steps": LM_DECODE,
         "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
         "decode_tok_per_s": out["decode_tok_per_s"],
+        "ssd_chunk_forward_sm90_launches": launches.get("ssd_chunk_forward_sm90", 0),
         "ssd_chunk_forward_launches": launches.get("ssd_chunk_forward", 0),
         "peak_device_bytes": peak, "prefill_projection_flops": proj_flops,
         "prefill_ssd_flops": CONFIG.num_layers * ssd_flops,
@@ -1836,77 +1843,105 @@ def _ssm_serve_path(torch):
 
 def _ssd_checks(torch, operands, launches):
     """``ssd_chunk_forward`` at the main path's operands (layers 0 and 63):
-    in bf16 as the path runs it and on the same operands cast to float32,
-    y and the final state against the plain version (the sequential
-    float32 recurrence) within ``SSD_TOL``; then times of kernel and plain
-    version beside the bound (layer 0's bf16 operands).  The plain
-    version's 1024 positions take ~9 small launches each, more than can be
-    queued behind a sleep, so its time is a call time (CUDA events around
-    back-to-back calls)."""
+    in bf16 as the path runs it, through the tensor-core route the
+    operands pick and through the FMA route, and on the same operands cast
+    to float32 (the FMA route), y and the final state against the plain
+    version (the sequential float32 recurrence) within ``SSD_TOL``; each
+    route's largest share of the per-element bound is printed.  Then times
+    of both routes and the plain version beside the bound (layer 0's bf16
+    operands), and the two routes again in turns: one row for each route.
+    The plain version's 1024 positions take ~9 small launches each, more
+    than can be queued behind a sleep, so its time is a call time (CUDA
+    events around back-to-back calls)."""
     from repro_torch.configs.mamba2_2p7b import CONFIG
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_chunk as kssd
 
     chunk = CONFIG.ssm.chunk
-    worst = 0.0
+    routes = (("ssd_chunk_forward_sm90", "src/repro_torch/csrc/ssd_chunk_sm90.cu",
+               kssd.ssd_chunk_forward_sm90),
+              ("ssd_chunk_forward", "src/repro_torch/csrc/ssd_chunk.cu",
+               kssd.ssd_chunk_forward_fma))
+    worst = {name: 0.0 for name, _, _ in routes}
+    shares = {name: 0.0 for name, _, _ in routes}
     for layer, ops_ in sorted(operands.items()):
         x, dt, a, b_, c_ = ops_
-        for name in ("bfloat16", "float32"):
-            if name == "float32":
-                x, b_, c_ = x.float(), b_.float(), c_.float()
-            y, state = kssd.ssd_chunk_forward(x, dt, a, b_, c_, chunk=chunk)
-            want_y, want_state = ref.ssd_scan(x, dt, a, b_, c_)
+        if kssd.route(x, b_, c_, chunk) != "sm90":
+            raise RuntimeError(f"layer {layer}'s SSD operands do not take the tensor-core route")
+        for name, fn in [(n, f) for n, _, f in routes] + [("float32", kssd.ssd_chunk_forward)]:
+            args = (x, b_, c_) if name != "float32" else (x.float(), b_.float(), c_.float())
+            dtype = "float32" if name == "float32" else "bfloat16"
+            xx, bb, cc = args
+            y, state = fn(xx, dt, a, bb, cc, chunk=chunk)
+            want_y, want_state = ref.ssd_scan(xx, dt, a, bb, cc)
             torch.cuda.synchronize()
             if not (torch.isfinite(y.float()).all() and torch.isfinite(state).all()):
-                raise RuntimeError(f"ssd_chunk_forward layer {layer} {name}: not finite")
-            err_y, share_y = _ssd_close(y, want_y, SSD_TOL[name])
+                raise RuntimeError(f"{name} layer {layer} {dtype}: not finite")
+            err_y, share_y = _ssd_close(y, want_y, SSD_TOL[dtype])
             err_s, share_s = _ssd_close(state, want_state, SSD_TOL["float32"])
             if max(share_y, share_s) > 1:
-                raise RuntimeError(f"ssd_chunk_forward layer {layer} {name}: y {err_y:.3e} "
-                                   f"of rms(y), state {err_s:.3e} of rms(state); shares of "
-                                   f"the bound {share_y:.3f}, {share_s:.3f}")
-            if name == "bfloat16":
-                worst = max(worst, err_y)
-            print(f"[kernel] ssd_chunk_forward layer {layer} {name} x {tuple(x.shape)} B/C "
+                raise RuntimeError(f"{name} layer {layer} {dtype}: y {err_y:.3e} of rms(y), "
+                                   f"state {err_s:.3e} of rms(state); shares of the bound "
+                                   f"{share_y:.3f}, {share_s:.3f}")
+            if name in worst:
+                worst[name] = max(worst[name], err_y)
+                shares[name] = max(shares[name], share_y, share_s)
+            label = "ssd_chunk_forward (FMA route)" if name == "float32" else name
+            print(f"[kernel] {label} layer {layer} {dtype} x {tuple(x.shape)} B/C "
                   f"{tuple(b_.shape)}: max |kernel - plain| y {err_y:.3e} rms(y), state "
                   f"{err_s:.3e} rms(state); largest share of the per-element bound "
-                  f"atol*rms + rtol*|want| {SSD_TOL[name]} {share_y:.3f} (y), "
+                  f"atol*rms + rtol*|want| {SSD_TOL[dtype]} {share_y:.3f} (y), "
                   f"{SSD_TOL['float32']} {share_s:.3f} (state); rms(y) "
                   f"{float(want_y.float().square().mean().sqrt()):.4e}, rms(state) "
                   f"{float(want_state.square().mean().sqrt()):.4e}, dt max "
                   f"{float(dt.max()):.2f}", flush=True)
             del y, state, want_y, want_state
+    print(f"[kernel] ssd_chunk_forward at layers {SSM_CAPTURE_LAYERS}, bf16: each route's "
+          f"largest share of the per-element bound (y or state) {json.dumps(shares)}",
+          flush=True)
 
     x, dt, a, b_, c_ = operands[SSM_CAPTURE_LAYERS[0]]
-    kernel = lambda: kssd.ssd_chunk_forward(x, dt, a, b_, c_, chunk=chunk)
     plain = lambda: ref.ssd_scan(x, dt, a, b_, c_)
     bound_ms, bound_by, flops, nbytes = _ssd_bound(x, b_, chunk)
     plain_ms = _call_ms(torch, plain, iters=3)
-    row = dict(
-        name="ssd_chunk_forward", route="cuda", source="src/repro_torch/csrc/ssd_chunk.cu",
-        replaces="src/repro/kernels/ssd_chunk.py:67",
-        shape=f"x {tuple(x.shape)} B/C {tuple(b_.shape)} bf16 chunk {chunk} "
-              f"(layer {SSM_CAPTURE_LAYERS[0]} of the mamba2-2.7b prefill)",
-        launches=launches["ssd_chunk_forward"], max_abs_err=worst,
-        ms=_queued_ms(torch, kernel), plain_ms=plain_ms, plain_timed_by="call",
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        call_ms=_call_ms(torch, kernel, iters=20), plain_call_ms=plain_ms,
-        library_call_ms=None,
-    )
-    print(f"[kernel] ssd_chunk_forward {row['shape']}: kernel_ms={row['ms']:.6f} "
-          f"plain_ms={plain_ms:.6f} (call time) library_ms=None bound_ms={bound_ms:.6f} "
-          f"({bound_by}: {flops} flops, {nbytes} bytes) call_ms={row['call_ms']:.6f}",
-          flush=True)
-    return row
+    shape = (f"x {tuple(x.shape)} B/C {tuple(b_.shape)} bf16 chunk {chunk} "
+             f"(layer {SSM_CAPTURE_LAYERS[0]} of the mamba2-2.7b prefill)")
+    rows = []
+    for name, source, fn in routes:
+        kernel = lambda fn=fn: fn(x, dt, a, b_, c_, chunk=chunk)
+        row = dict(
+            name=name, route="cuda", source=source,
+            replaces="src/repro/kernels/ssd_chunk.py:67", shape=shape,
+            launches=launches.get(name, 0), max_abs_err=worst[name],
+            ms=_queued_ms(torch, kernel), plain_ms=plain_ms, plain_timed_by="call",
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            call_ms=_call_ms(torch, kernel, iters=20), plain_call_ms=plain_ms,
+            library_call_ms=None,
+        )
+        rows.append(row)
+        print(f"[kernel] {name} {shape}: kernel_ms={row['ms']:.6f} plain_ms={plain_ms:.6f} "
+              f"(call time) library_ms=None bound_ms={bound_ms:.6f} ({bound_by}: {flops} "
+              f"flops, {nbytes} bytes) call_ms={row['call_ms']:.6f}", flush=True)
+    # the two routes again, in turns, for the spread within this run
+    turns = {name: [] for name, _, _ in routes}
+    for _ in range(3):
+        for name, _, fn in routes:
+            turns[name].append(_queued_ms(torch, lambda fn=fn: fn(x, dt, a, b_, c_, chunk=chunk)))
+    rows[0]["turns_ms"] = turns
+    print(f"[kernel] ssd_chunk_forward's two routes in turns: {json.dumps(turns)}", flush=True)
+    return rows
 
 
 def _ssd_adversarial_checks(torch) -> None:
     """``ssd_chunk_forward`` against its plain version on inputs the main
-    path never makes: S of 1, 63, 256, 300 and 1000 (ragged last chunks,
-    one position); groups 1, 2 and 8; P and N of 16, 64 and 128; dt large
-    enough that cs reaches -1e4 in a chunk (every exp underflows but the
-    diagonal's); A = 0 (no decay at all); an initial state; float32 and
-    bf16, y and the final state within ``SSD_TOL``."""
+    path never makes, through whichever route each takes: S of 1, 63, 256,
+    300 and 1000 (ragged last chunks, one position); groups 1, 2 and 8; P
+    and N of 16, 64 and 128; dt large enough that cs reaches -1e4 in a
+    chunk (every exp underflows but the diagonal's); A = 0 (no decay at
+    all); an initial state; float32 and bf16, y and the final state within
+    ``SSD_TOL``.  Then bf16 cases that must take the tensor-core route:
+    ragged S of 1, 63, 300 and 1000, G of 2 and 8, P of 128, N of 64,
+    chunks of 64 and 128, dt*A ~ -40, A = 0 and an initial state."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_chunk as kssd
 
@@ -1917,9 +1952,17 @@ def _ssd_adversarial_checks(torch) -> None:
              (1, 1000, 8, 64, 1, 128, 256, "normal"), (2, 130, 4, 16, 1, 64, 64, "normal"),
              (1, 512, 4, 64, 1, 64, 256, "large dt"), (1, 300, 4, 32, 2, 32, 128, "A = 0"),
              (2, 200, 8, 64, 2, 128, 256, "initial state"))
-    for dtype in (torch.float32, torch.bfloat16):
+    sm90_cases = ((1, 1, 8, 64, 1, 128, 256, "normal"), (2, 63, 8, 64, 1, 128, 64, "normal"),
+                  (2, 300, 8, 64, 2, 128, 256, "normal"),
+                  (1, 1000, 16, 64, 8, 64, 128, "normal"),
+                  (2, 300, 4, 128, 1, 128, 128, "normal"),
+                  (1, 512, 4, 64, 1, 64, 256, "large dt"), (1, 300, 4, 64, 2, 128, 64, "A = 0"),
+                  (2, 200, 8, 128, 2, 64, 256, "initial state"))
+    taken = {"sm90": 0, "fma": 0}
+    for dtype, case_list, must in ((torch.float32, cases, None), (torch.bfloat16, cases, None),
+                                   (torch.bfloat16, sm90_cases, "sm90")):
         name = str(dtype).split(".")[-1]
-        for bsz, s, h, p, g, n, chunk, kind in cases:
+        for bsz, s, h, p, g, n, chunk, kind in case_list:
             x = (torch.randn((bsz, s, h, p), generator=gen, device="cuda") * 0.5).to(dtype)
             dt = torch.nn.functional.softplus(torch.randn((bsz, s, h), generator=gen,
                                                           device="cuda"))
@@ -1934,6 +1977,11 @@ def _ssd_adversarial_checks(torch) -> None:
                 a = torch.zeros_like(a)
             elif kind == "initial state":
                 init = torch.randn((bsz, h, p, n), generator=gen, device="cuda")
+            route = kssd.route(x, bm, cm, chunk)
+            if must is not None and route != must:
+                raise RuntimeError(f"ssd_chunk_forward {kind} (P={p}, N={n}, chunk {chunk}) "
+                                   f"{name}: route {route}, expected {must}")
+            taken[route] += 1
             y, state = kssd.ssd_chunk_forward(x, dt, a, bm, cm, chunk=chunk,
                                               initial_state=init)
             want_y, want_state = ref.ssd_scan(x, dt, a, bm, cm, init)
@@ -1943,14 +1991,15 @@ def _ssd_adversarial_checks(torch) -> None:
             err_y, share_y = _ssd_close(y, want_y, SSD_TOL[name])
             err_s, share_s = _ssd_close(state, want_state, SSD_TOL["float32"])
             if max(share_y, share_s) > 1:
-                raise RuntimeError(f"ssd_chunk_forward {kind} (B={bsz}, S={s}, H={h}, P={p}, "
-                                   f"G={g}, N={n}, chunk {chunk}) {name}: y {err_y:.3e} "
-                                   f"rms(y), state {err_s:.3e} rms(state), shares "
+                raise RuntimeError(f"ssd_chunk_forward ({route} route) {kind} (B={bsz}, S={s}, "
+                                   f"H={h}, P={p}, G={g}, N={n}, chunk {chunk}) {name}: y "
+                                   f"{err_y:.3e} rms(y), state {err_s:.3e} rms(state), shares "
                                    f"{share_y:.3f}, {share_s:.3f}")
-    print("[adversarial] ssd_chunk_forward S in (1, 63, 130, 200, 256, 300, 512, 1000), "
-          "G in (1, 2, 8), P and N in (16, 32, 64, 128), chunks 64/128/256, dt*A ~ -40 "
-          "(|cs| to 1e4), A = 0, an initial state, f32 and bf16: within tolerance",
-          flush=True)
+    print(f"[adversarial] ssd_chunk_forward S in (1, 63, 130, 200, 256, 300, 512, 1000), "
+          f"G in (1, 2, 8), P and N in (16, 32, 64, 128), chunks 64/128/256, dt*A ~ -40 "
+          f"(|cs| to 1e4), A = 0, an initial state, f32 and bf16, through the route each "
+          f"takes ({taken['sm90']} cases on the tensor-core route, {taken['fma']} on the FMA "
+          f"route): within tolerance", flush=True)
 
 
 def _ssm_card_vs_cpu(torch):
@@ -2196,7 +2245,7 @@ def main() -> int:
     ssm_launches, ssm_operands, ssm = _ssm_serve_path(torch)
     print(f"[phase] SSM serving path {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
-    results.append(_ssd_checks(torch, ssm_operands, ssm_launches))
+    results.extend(_ssd_checks(torch, ssm_operands, ssm_launches))
     del ssm_operands
     torch.cuda.empty_cache()
     _ssd_adversarial_checks(torch)

@@ -14,8 +14,14 @@
 // copies around them dominate.
 //
 // Design:
-//   * xor_decrypt: grid-stride loop over 16-byte int4 loads and stores,
-//     neighbouring threads on neighbouring addresses.
+//   * xor_decrypt: at the main path's ~0.74 MB a launch it sits at the
+//     launch floor, so the grid is what counts: 128-thread blocks sized to
+//     the work (no grid-stride loop), each thread two independent 16-byte
+//     loads through the read-only path, both issued before either store,
+//     neighbouring threads on neighbouring addresses.  Timed in turns on an
+//     H100 (PERF.md) it beat torch.bitwise_xor, where a grid-stride loop
+//     of one load a step in 256-thread blocks, one load a thread, or four
+//     a thread did not.
 //   * dense_unpack: one block per feature.  The TPU kernel expanded the
 //     whole bitmap and took a cumsum over a VMEM tile; here each thread
 //     takes one bitmap word, a warp-shuffle scan of __popc gives every
@@ -39,18 +45,30 @@ namespace {
 constexpr uint32_t kXorKey32 = 0x5A5A5A5Au;
 constexpr int32_t kNanBits = 0x7FC00000;
 constexpr int kUnpackThreads = 256;
+constexpr int kXorThreads = 128;
+constexpr int kXorLoads = 2;    // independent 16-byte loads a thread
 
-__global__ void xor_decrypt_kernel(const int4* __restrict__ in,
-                                   int4* __restrict__ out, int64_t n4) {
+__global__ void __launch_bounds__(kXorThreads)
+xor_decrypt_kernel(const int4* __restrict__ in, int4* __restrict__ out, int64_t n4) {
   const int k = static_cast<int>(kXorKey32);
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < n4; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    int4 v = in[i];
-    v.x ^= k;
-    v.y ^= k;
-    v.z ^= k;
-    v.w ^= k;
-    out[i] = v;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * (kXorThreads * kXorLoads) + threadIdx.x;
+  int4 v[kXorLoads];
+#pragma unroll
+  for (int j = 0; j < kXorLoads; ++j) {
+    const int64_t i = base + j * kXorThreads;
+    if (i < n4) v[j] = __ldg(in + i);
+  }
+#pragma unroll
+  for (int j = 0; j < kXorLoads; ++j) {
+    const int64_t i = base + j * kXorThreads;
+    if (i < n4) {
+      int4 w = v[j];
+      w.x ^= k;
+      w.y ^= k;
+      w.z ^= k;
+      w.w ^= k;
+      out[i] = w;
+    }
   }
 }
 
@@ -148,8 +166,11 @@ extern "C" {
 // words: n_words int32 (a multiple of 4), in and out 16-byte aligned
 int xor_decrypt_launch(const void* in, void* out, int64_t n_words, void* stream) {
   const int64_t n4 = n_words / 4;
+  const int64_t blocks = (n4 + kXorThreads * kXorLoads - 1) / (kXorThreads * kXorLoads);
+  if (blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
   if (n4 > 0) {
-    xor_decrypt_kernel<<<grid_for(n4, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+    xor_decrypt_kernel<<<static_cast<unsigned>(blocks), kXorThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int4*>(in), static_cast<int4*>(out), n4);
   }
   return static_cast<int>(cudaGetLastError());

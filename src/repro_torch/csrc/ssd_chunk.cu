@@ -55,8 +55,9 @@
 // cannot come near that bound.  With G = 1, C.B^T is the same for all 80
 // heads of a batch row: the reference computes it once per group
 // (src/repro/models/ssm.py:110), and computing it once per (batch, group,
-// chunk) would halve this kernel's work.  wgmma/TMA tiles and that
-// sharing are later work.
+// chunk) would halve this kernel's work.  The bf16 calls of the main path
+// go to ssd_chunk_sm90.cu's wgmma kernel instead (kernels/ssd_chunk.py::
+// route); this one takes every other call.
 //
 // Design (simple and right first):
 //   * one block of 256 threads per (b, h), looping over the chunks; the

@@ -65,6 +65,11 @@ SIGNATURES = {
         _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
         _I64, _I64, _I64, _I64, _I32, _P,
     ),
+    "ssd_chunk_sm90_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+        _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+        _I64, _I64, _I64, _I64, _P,
+    ),
     "sigrid_hash_launch": (_P, _P, _I64, _U32, _U32, _P),
     "bucketize_launch": (_P, _P, _P, _I64, _I32, _P),
 }

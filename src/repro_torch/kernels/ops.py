@@ -94,7 +94,10 @@ def ssd_chunk_forward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     a (H,) or (B, H), b_ and c_ (B, S, G, N) -> y (B, S, H, P) in x's dtype
     and the final state (B, H, P, N) float32.  On a CPU tensor the
     sequential float32 recurrence (``ref.ssd_scan``, which has no chunks);
-    on a CUDA tensor the chunked kernel, ``chunk`` positions at a time."""
+    on a CUDA tensor a chunked kernel, ``chunk`` positions at a time: the
+    tensor-core one for bf16 with P and N of 64 or 128, a chunk that is a
+    multiple of 64 and 16-byte aligned views, the FMA one otherwise
+    (``kernels.ssd_chunk.route``)."""
     if _on_cpu(x):
         return ref.ssd_scan(x, dt, a, b_, c_, initial_state)
     return _ssd.ssd_chunk_forward(x, dt, a, b_, c_, chunk=chunk, initial_state=initial_state)

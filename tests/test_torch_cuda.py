@@ -200,10 +200,14 @@ def _ssd_operands(cuda, dtype, b, s, h, p, g, n, seed):
 ])
 def test_ssd_kernel_matches_plain(cuda, dtype, s, chunk, h, p, g, n):
     """y and the final state (B, H, P, N) against ``ref.ssd_scan``, from a
-    zero and from a given initial state."""
+    zero and from a given initial state, through the route the operands
+    pick (bf16 at P 64, N 128, chunk 256: the tensor-core kernel; the
+    others: the FMA kernel), counted under that route's name."""
     x, dt, a, bm, cm = _ssd_operands(cuda, dtype, 2, s, h, p, g, n, s + p)
     init = torch.randn((2, h, p, n), device=cuda)
-    before = build.LAUNCHES.snapshot().get("ssd_chunk_forward", 0)
+    name = {"sm90": "ssd_chunk_forward_sm90",
+            "fma": "ssd_chunk_forward"}[kssd.route(x, bm, cm, chunk)]
+    before = build.LAUNCHES.snapshot().get(name, 0)
     for start in (None, init):
         y, state = kssd.ssd_chunk_forward(x, dt, a, bm, cm, chunk=chunk, initial_state=start)
         want_y, want_state = ref.ssd_scan(x, dt, a, bm, cm, start)
@@ -212,7 +216,43 @@ def test_ssd_kernel_matches_plain(cuda, dtype, s, chunk, h, p, g, n):
         assert state.shape == (2, h, p, n)
         _ssd_close(y, want_y, dtype)
         _ssd_close(state, want_state, torch.float32)
-    assert build.LAUNCHES.snapshot()["ssd_chunk_forward"] == before + 2
+    assert build.LAUNCHES.snapshot()[name] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,chunk,h,p,g,n", [
+    (100, 64, 4, 64, 2, 64),         # ragged last chunk, two groups
+    (256, 256, 8, 64, 1, 128),       # one full chunk at the model's P and N
+    (300, 128, 2, 128, 1, 64),       # P of 128 (two column tiles), N of 64
+])
+def test_ssd_tensor_core_route_matches_plain(cuda, s, chunk, h, p, g, n):
+    """The tensor-core route over the grid above with P and N it takes
+    (bf16 only): y within the bf16 bound and the final state within the
+    float32 bound of ``ref.ssd_scan``, from a zero and from a given
+    initial state; both launches counted as ``ssd_chunk_forward_sm90``,
+    none as the FMA route's; and within the same bounds of the FMA route
+    on the same operands."""
+    x, dt, a, bm, cm = _ssd_operands(cuda, torch.bfloat16, 2, s, h, p, g, n, s + n)
+    assert kssd.route(x, bm, cm, chunk) == "sm90"
+    init = torch.randn((2, h, p, n), device=cuda)
+    before = build.LAUNCHES.snapshot()
+    for start in (None, init):
+        y, state = kssd.ssd_chunk_forward_sm90(x, dt, a, bm, cm, chunk=chunk,
+                                               initial_state=start)
+        want_y, want_state = ref.ssd_scan(x, dt, a, bm, cm, start)
+        torch.cuda.synchronize()
+        assert y.dtype == torch.bfloat16 and state.shape == (2, h, p, n)
+        _ssd_close(y, want_y, torch.bfloat16)
+        _ssd_close(state, want_state, torch.float32)
+    after = build.LAUNCHES.snapshot()
+    assert after["ssd_chunk_forward_sm90"] == before.get("ssd_chunk_forward_sm90", 0) + 2
+    assert after.get("ssd_chunk_forward", 0) == before.get("ssd_chunk_forward", 0)
+    fma_y, fma_state = kssd.ssd_chunk_forward_fma(x, dt, a, bm, cm, chunk=chunk,
+                                                  initial_state=init)
+    _ssd_close(y, fma_y, torch.bfloat16)
+    _ssd_close(state, fma_state, torch.float32)
+    with pytest.raises(ValueError, match="ssd_chunk_forward_sm90: takes bf16"):
+        kssd.ssd_chunk_forward_sm90(x.float(), dt, a, bm.float(), cm.float(), chunk=chunk)
 
 
 @pytest.mark.cuda

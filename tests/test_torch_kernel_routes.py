@@ -7,7 +7,13 @@ are plain Python and are held here on the main path's views and on views
 TMA refuses.  ``bucketize``'s kernel searches sorted, NaN-free borders
 instead of counting; its search and its sortedness check are mirrored
 here in PyTorch and held to the plain count on the borders that decide
-between them.  The kernels themselves run in ``tests/test_torch_cuda.py``.
+between them.  ``ssd_chunk_forward`` picks its route the same way (bf16,
+P and N of 64 or 128, a chunk that is a multiple of 64, views whose rows
+16-byte copies read: ``tma_strides``' rule); its tensor-core decomposition
+and roundings are
+mirrored in plain PyTorch (``ssd_chunk.sm90_form``) and held to the
+sequential recurrence and to the Pallas kernel in interpret mode.  The
+kernels themselves run in ``tests/test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
@@ -16,6 +22,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ssd_chunk as kssd  # noqa: E402
 
 BF16 = torch.bfloat16
 
@@ -140,3 +147,170 @@ def test_bucketize_search_equals_the_count_on_sorted_borders():
               torch.tensor([0.0, 1.0, float("nan")]), torch.tensor([2.0, -1.0, 0.0]),
               torch.tensor([0.0, -1e-40])):
         assert not _sorted_nan_free(b)
+
+
+# -- ssd_chunk_forward's routes --------------------------------------------------------
+
+# chip_smoke.py's SSD_TOL: bf16 y within 2e-2 of rms(want) + 2e-2 |want| per
+# element, the float32 state within 5e-4 of its rms + 1e-3 |want|
+SSD_TOL = {"y": (2e-2, 2e-2), "state": (5e-4, 1e-3)}
+
+
+def _ssd_views(b, s, h, p, g, n, dtype=BF16, device="cpu"):
+    """x, B and C as ``models/ssm.py``'s ``_mixer`` hands them over: the
+    (B, S, d_inner) and (B, S, G*N) activations reshaped to (B, S, H, P)
+    and (B, S, G, N)."""
+    x = torch.zeros((b, s, h * p), dtype=dtype, device=device).reshape(b, s, h, p)
+    bv = torch.zeros((b, s, g * n), dtype=dtype, device=device).reshape(b, s, g, n)
+    cv = torch.zeros((b, s, g * n), dtype=dtype, device=device).reshape(b, s, g, n)
+    return x, bv, cv
+
+
+def test_ssd_route_takes_the_main_path_views():
+    """mamba2-2.7b's prefill layout (H 80, P 64, G 1, N 128, chunk 256),
+    cut to 2 x 16 positions: byte strides of (head or group, position,
+    batch), read in place; the route takes them."""
+    x, bv, cv = _ssd_views(2, 16, 80, 64, 1, 128)
+    assert kflash.tma_strides(x) == (64 * 2, 80 * 64 * 2, 16 * 80 * 64 * 2)
+    assert kflash.tma_strides(bv) == (128 * 2, 128 * 2, 16 * 128 * 2)
+    assert kflash.tma_strides(cv) == kflash.tma_strides(bv)
+    assert kssd.route(x, bv, cv, 256) == "sm90"
+
+
+@pytest.mark.parametrize("p,n", [(64, 64), (64, 128), (128, 64), (128, 128)])
+@pytest.mark.parametrize("groups,chunk", [(1, 64), (2, 128), (8, 256)])
+def test_ssd_route_takes_bf16_at_p_and_n_64_and_128(p, n, groups, chunk):
+    x, bv, cv = _ssd_views(1, 130, 8, p, groups, n)
+    assert kssd.route(x, bv, cv, chunk) == "sm90"
+
+
+@pytest.mark.parametrize("dtype,p,n,chunk", [
+    (torch.float32, 64, 128, 256), (torch.float32, 128, 64, 64),
+    (BF16, 16, 128, 256), (BF16, 32, 128, 256), (BF16, 48, 128, 256),
+    (BF16, 64, 16, 256), (BF16, 64, 32, 256), (BF16, 64, 48, 256),
+    (BF16, 64, 128, 100), (BF16, 64, 128, 32), (BF16, 64, 128, 320),
+])
+def test_ssd_route_sends_other_types_dims_and_chunks_to_fma(dtype, p, n, chunk):
+    x, bv, cv = _ssd_views(1, 16, 4, p, 2, n, dtype)
+    assert kssd.route(x, bv, cv, chunk) == "fma"
+
+
+def test_ssd_route_refuses_views_16_byte_copies_cannot_read():
+    """A base off by 2 bytes, an odd stride, a broadcast (stride 0) group
+    dim and a last dim that is not contiguous send the call to the FMA
+    route; a base off by 16 bytes with 16-byte strides does not."""
+    x, bv, cv = _ssd_views(1, 16, 4, 64, 1, 128)
+    wide = torch.zeros((1, 16, 4, 72), dtype=BF16)
+    off = wide[..., 8:]                              # base +16 bytes, rows 144 bytes
+    assert kflash.tma_strides(off) == (72 * 2, 4 * 72 * 2, 16 * 4 * 72 * 2)
+    assert kssd.route(off, bv, cv, 256) == "sm90"
+    shifted = wide[..., 1:65]                        # base +2 bytes
+    assert kssd.route(shifted, bv, cv, 256) == "fma"
+    odd = torch.zeros((1, 16, 1, 131), dtype=BF16)[..., :128]     # 262-byte rows
+    assert kflash.tma_strides(odd) is None
+    assert kssd.route(x, odd, cv, 256) == "fma"
+    assert kssd.route(x, bv, odd, 256) == "fma"
+    expanded = torch.zeros((1, 16, 1, 128), dtype=BF16).expand(1, 16, 2, 128)
+    assert kssd.route(x, expanded, expanded, 256) == "fma"     # group stride 0
+    strided = torch.zeros((1, 16, 4, 128), dtype=BF16)[..., ::2]
+    assert kssd.route(strided, bv, cv, 256) == "fma"           # last dim not contiguous
+
+
+def test_ssd_route_decides_the_same_on_any_device():
+    """The rule reads dtypes, shapes, strides and base addresses only: the
+    same views on the CPU and on the meta device (base address 0) take the
+    same route."""
+    for dtype, p, n, chunk in ((BF16, 64, 128, 256), (BF16, 128, 64, 64),
+                               (torch.float32, 64, 128, 256), (BF16, 32, 128, 256),
+                               (BF16, 64, 128, 100)):
+        views = [_ssd_views(2, 40, 4, p, 2, n, dtype, device) for device in ("cpu", "meta")]
+        routes = {kssd.route(*v, chunk) for v in views}
+        assert len(routes) == 1, (dtype, p, n, chunk, routes)
+
+
+def test_ssd_wrappers_refuse_cpu_tensors():
+    """No silent fallback: each route's wrapper takes CUDA tensors only
+    (the plain version runs through ``kernels.ops``)."""
+    x, bv, cv = _ssd_views(1, 8, 2, 64, 1, 64)
+    dt, a = torch.zeros((1, 8, 2)), torch.zeros(2)
+    for fn in (kssd.ssd_chunk_forward, kssd.ssd_chunk_forward_sm90,
+               kssd.ssd_chunk_forward_fma):
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            fn(x, dt, a, bv, cv, chunk=64)
+
+
+def _ssd_close(got, want, tol):
+    """Every element within ``atol * rms(want) + rtol * |want|``; returns
+    the largest share of that bound used."""
+    atol, rtol = tol
+    got, want = got.float(), want.float()
+    rms = float(want.square().mean().sqrt())
+    share = float(((got - want).abs() / (atol * rms + rtol * want.abs())).max())
+    assert share <= 1, share
+    return share
+
+
+def _ssd_bf16_inputs(seed, b, s, h, p, g, n, kind="normal"):
+    """bf16 x, B, C and float32 dt, A the way the mixer makes them;
+    ``large dt`` puts dt to ~190 and |cs| ~7,400 over a chunk of 256, as at
+    the random full-width mamba2-2.7b."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((b, s, h, p)) * 0.5).astype(np.float32)).to(BF16)
+    scale = 50.0 if kind == "large dt" else 1.0
+    dt = torch.from_numpy(np.logaddexp(scale * rng.standard_normal((b, s, h)), 0)
+                          .astype(np.float32))
+    a = torch.from_numpy((-np.exp(rng.standard_normal(h) * 0.3)).astype(np.float32))
+    bm = torch.from_numpy((rng.standard_normal((b, s, g, n)) * 0.5).astype(np.float32)).to(BF16)
+    cm = torch.from_numpy((rng.standard_normal((b, s, g, n)) * 0.5).astype(np.float32)).to(BF16)
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,kind", [
+    (2, 128, 4, 64, 2, 64, 64, "normal"),        # two chunks, two groups
+    (1, 200, 4, 64, 1, 128, 128, "normal"),      # a ragged last chunk
+    (1, 256, 2, 64, 1, 128, 256, "large dt"),    # |cs| ~ 7,400 over the chunk
+])
+def test_sm90_form_matches_the_recurrence_and_the_pallas_kernel(b, s, h, p, g, n, chunk,
+                                                                 kind):
+    """The tensor-core route's decomposition, with its roundings (bf16 m,
+    C.state against a bf16 copy of the state, the state update's x*w as
+    bf16 hi + lo, m's exponent from float32 hi + lo parts of the float64
+    cs * log2(e)), against the sequential float32 recurrence: y within the
+    bf16 bound, the state within the float32 bound; its y against the
+    Pallas kernel in interpret mode (bf16 operands, one head a row, as
+    ``tests/test_torch_ssm.py::test_plain_ssd_matches_pallas_and_ref``
+    runs it) within the bf16 bound, where S is a multiple of the chunk
+    (the TPU kernel asserts it); and from a given initial state."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ops as jops
+
+    x, dt, a, bm, cm = _ssd_bf16_inputs(s + p + n, b, s, h, p, g, n, kind)
+    if kind == "large dt":
+        assert float(dt.max()) > 150 and float((dt * a).sum(1).min()) < -5000
+    y, state = kssd.sm90_form(x, dt, a, bm, cm, chunk)
+    want_y, want_state = ref.ssd_scan(x, dt, a, bm, cm)
+    assert y.dtype == BF16 and state.dtype == torch.float32
+    _ssd_close(y, want_y, SSD_TOL["y"])
+    _ssd_close(state, want_state, SSD_TOL["state"])
+    init = torch.from_numpy(np.random.default_rng(s).standard_normal((b, h, p, n))
+                            .astype(np.float32))
+    y0, state0 = kssd.sm90_form(x, dt, a, bm, cm, chunk, init)
+    want_y0, want_state0 = ref.ssd_scan(x, dt, a, bm, cm, init)
+    _ssd_close(y0, want_y0, SSD_TOL["y"])
+    _ssd_close(state0, want_state0, SSD_TOL["state"])
+    if s % chunk:
+        return
+    # the TPU kernel's rows: (batch, head) pairs, each reading its group
+    hg = h // g
+    rows = lambda t: t.permute(0, 2, 1, 3).reshape(b * h, s, -1)   # noqa: E731
+    x_r = rows(x)
+    b_r = rows(bm.repeat_interleave(hg, 2))
+    c_r = rows(cm.repeat_interleave(hg, 2))
+    dt_r = dt.permute(0, 2, 1).reshape(b * h, s)
+    a_r = a.repeat(b)
+    to_j = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16 if t.dtype == BF16  # noqa: E731
+                                 else jnp.float32)
+    jy = jops.ssd_chunk_forward(*(to_j(t) for t in (x_r, dt_r, a_r, b_r, c_r)),
+                                chunk=chunk, use_pallas=True)
+    jy = torch.from_numpy(np.asarray(jy, np.float32)).reshape(b, h, s, p).permute(0, 2, 1, 3)
+    _ssd_close(y, jy, SSD_TOL["y"])
