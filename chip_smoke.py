@@ -4,19 +4,28 @@
     python3 chip_smoke.py
 
 1. Requires CUDA and prints the card's name and power limit.
-2. Builds the CUDA kernels from ``src/repro_torch/csrc`` (timed).
+2. Builds the CUDA kernels from ``src/repro_torch/csrc`` (timed) and
+   prints ``-Xptxas -v``'s registers and spills of both routes of
+   ``fused_transform`` and ``embedding_bag``.
 3. Captures the data path's kernel operands from one stripe of the
    full-width ``dlrm-paper`` data path, holds each kernel bit-exact
    (``torch.equal``) against its plain PyTorch version on the card, and
    times kernel, plain version and, where one exists, the single PyTorch
    call computing the same function (device time and call time both from
-   CUDA events: ``_queued_ms``, ``_call_ms``).  Then holds each kernel bit-exact on
+   CUDA events: ``_queued_ms``, ``_call_ms``); ``fused_transform`` by
+   both routes, its 16-byte-lane route the engine's tiles take and its
+   general route.  Then holds each kernel (both routes where the vec or
+   warp route takes the operands) bit-exact on
    adversarial inputs the main path never makes (NaN payloads, signed
-   zeros, subnormals, extreme parameters, both tile layouts, long bitmaps,
+   zeros, subnormals, extreme parameters, both tile layouts, rows 4k to
+   4k+3, unsorted, tied, signed-zero, +inf and NaN border rows, aligned
+   and unaligned views, long bitmaps,
    every byte shift; for ``embedding_bag`` empty bags, duplicate ids, the
-   last row, fractional weights, odd L and E, NaN/inf rows under a mask of
+   last row, fractional weights, L of 0 to 300 and E of 1 to 1000,
+   NaN/inf rows under a mask of
    0, subnormal rows, a table of more than 2^31 elements);
-   ``xor_decrypt`` and ``torch.bitwise_xor`` again in turns.  Then the
+   ``xor_decrypt`` and ``torch.bitwise_xor`` again in turns, and
+   ``fused_transform``'s two routes in turns at each wave.  Then the
    standalone ``sigrid_hash`` and ``bucketize`` (no path launches them)
    bit-exact at one batch's tiles and on adversarial inputs, and timed
    (``bucketize`` also with tied, 5,000 sorted and 5,000 unsorted
@@ -24,7 +33,8 @@
 4. The serving path: serves every batch of the full-width ``dlrm-paper``
    DPP session through ``dlrm_dpp_batches(CONFIG, 512, device="cuda")``
    with the launch counts set to 0 just before, checks that every data
-   path kernel launched, that the batches have the expected shapes and
+   path kernel launched (``fused_transform`` by its vec route only), that
+   the batches have the expected shapes and
    finite dense values, and that they are byte-identical (as a multiset:
    workers race) to the port's numpy-engine session on the same data;
    prints batches/s and rows/s.
@@ -33,7 +43,8 @@
    of 2,000,000: the store's host tier is numpy on the host) and trains 8
    steps of the tiered-store DLRM on its batches with ``Trainer(...,
    device="cuda")`` and ``kernel_bags=True``; checks that
-   ``embedding_bag`` launched, that every loss is finite, and that a CPU
+   ``embedding_bag`` launched, by its warp route only, that every loss is
+   finite, and that a CPU
    trainer (same batches, same tables) stepped in turn with a card
    trainer, loading the card's MLP weights and AdamW state before each
    step and taking the card's ReLU pattern (its pre-activations within
@@ -43,10 +54,12 @@
    norm, leaf by leaf) of the CPU's and its parameters within 1e-5 of the
    float64 AdamW update of its own state; the lockstep card losses must
    equal the main run's.  Prints per-step times, steps/s, rows/s, the hot
-   rate and the device idle share of a profiled run, then holds
-   ``embedding_bag`` bit-exact against its plain version at the operands of
-   that run's first fully-hot lookup and times it (and
-   ``torch.nn.functional.embedding_bag`` as the library yardstick).
+   rate and the device idle share of a profiled run, then holds both
+   routes of ``embedding_bag`` bit-exact against its plain version at the
+   operands of that run's first fully-hot lookup and times them (and
+   ``torch.nn.functional.embedding_bag`` as the library yardstick), in
+   turns too; then the same at every bag of one step (21,504 bags of the
+   first batch folded onto the same hot-slot table), not gated on time.
 6. The LM serving path (``_lm_serve_path``): with the launch counts set to 0,
    serves the full-width ``qwen3-8b`` (36 layers, d_model 4096, bf16,
    weights drawn on the card from seed 0) through
@@ -88,9 +101,10 @@
    route), both routes timed beside the bound and in turns.  Then a
    depth-2, full-width model from one set of weights on the card and on
    the CPU (prompt 512).
-9. Prints one JSON line with every kernel's numbers (eleven: the nine TPU
-   kernels' ports, flash attention and the SSD scan by both of their
-   routes), the card's line, and last the result line
+9. Prints one JSON line with every kernel's numbers (thirteen: the nine
+   TPU kernels' ports, ``fused_transform``, ``embedding_bag``, flash
+   attention and the SSD scan by both of their routes), the card's line,
+   and last the result line
    ``{"ok": true, "device": {...}}``.
 
 The device's busy time and idle share in steps 4-6 and 8 come from
@@ -104,9 +118,12 @@ Any failure raises, so the script exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -147,6 +164,9 @@ SSM_CAPTURE_LAYERS = (0, 63)
 # rounds m to bf16 before m.x, 2^-9 relative a term, and y to bf16).  The
 # final state is float32 in both types and held to the float32 bound.
 SSD_TOL = {"float32": (5e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}
+# kernels whose registers and spills the build prints on their own lines
+PTXAS_KERNELS = ("fused_transform_kernel", "fused_transform_vec_kernel",
+                 "embedding_bag_kernel", "embedding_bag_warp_kernel")
 
 
 def _setup():
@@ -166,6 +186,21 @@ def _setup():
     )
     card = smi.stdout.strip().splitlines()[0]
     return torch, card
+
+
+def _ptxas_summary(text: str, names) -> list:
+    """One line a kernel instantiation of ``nvcc -Xptxas -v``'s output whose
+    mangled name holds one of ``names``: its registers and spills."""
+    out, fn, props = [], None, []
+    for line in text.splitlines() + ["ptxas info    : Compiling entry function '' for"]:
+        m = re.search(r"Compiling entry function '([^']*)'", line)
+        if m:
+            if fn and any(n in fn for n in names):
+                out.append(f"{fn}: " + "; ".join(props))
+            fn, props = m.group(1), []
+        elif fn and ("spill" in line or "registers" in line):
+            props.append(line.split(":", 1)[-1].strip())
+    return out
 
 
 def _digest(batch) -> str:
@@ -370,24 +405,31 @@ def _kernel_checks(torch, operands, waves):
         bytes=nbytes(src, idx, sh) + nbytes(idx), ops=4 * idx.numel(),
         shape=f"src {tuple(src.shape)} idx {tuple(idx.shape)}",
     ))
+    # fused_transform by both routes at each wave: the 16-byte-lane route
+    # the engine's tiles take, and the general route on the same operands
+    ft_routes = (("fused_transform_vec", "vec", kft.fused_transform_vec),
+                 ("fused_transform", "scalar", kft.fused_transform_scalar))
     for w, (mat, codes, p0, p1, brd) in enumerate(waves):
+        if kft.route(mat, features_major=True) != "vec":
+            raise RuntimeError(f"wave {w}'s tile {tuple(mat.shape)} does not take the vec route")
         present = sorted(set(codes.tolist()))
-        cases.append(dict(
-            name="fused_transform", wave=w,
-            source="src/repro_torch/csrc/fused_transform.cu",
-            replaces="src/repro/kernels/fused_transform.py:81",
-            kernel=(lambda mat=mat, codes=codes, p0=p0, p1=p1, brd=brd:
-                    kft.fused_transform(mat, codes, p0, p1, brd, features_major=True)),
-            plain=(lambda mat=mat, codes=codes, p0=p0, p1=p1, brd=brd:
-                   ref.fused_transform(mat.T, codes, p0, p1, brd).T),
-            library=None,
-            bytes=2 * nbytes(mat) + nbytes(codes, p0, p1, brd),
-            ops=mat.shape[1] * sum(
-                (brd.shape[1] if c == ref.OP_BUCKETIZE_F else 12)
-                for c in codes.tolist()
-            ),
-            shape=f"tile {tuple(mat.shape)} nb {brd.shape[1]} codes {present}",
-        ))
+        for name, kernel_route, fn in ft_routes:
+            cases.append(dict(
+                name=name, kernel_route=kernel_route, wave=w,
+                source="src/repro_torch/csrc/fused_transform.cu",
+                replaces="src/repro/kernels/fused_transform.py:81",
+                kernel=(lambda fn=fn, mat=mat, codes=codes, p0=p0, p1=p1, brd=brd:
+                        fn(mat, codes, p0, p1, brd, features_major=True)),
+                plain=(lambda mat=mat, codes=codes, p0=p0, p1=p1, brd=brd:
+                       ref.fused_transform(mat.T, codes, p0, p1, brd).T),
+                library=None,
+                bytes=2 * nbytes(mat) + nbytes(codes, p0, p1, brd),
+                ops=mat.shape[1] * sum(
+                    (brd.shape[1] if c == ref.OP_BUCKETIZE_F else 12)
+                    for c in codes.tolist()
+                ),
+                shape=f"tile {tuple(mat.shape)} nb {brd.shape[1]} codes {present}",
+            ))
 
     rows = []
     for c in cases:
@@ -409,7 +451,8 @@ def _kernel_checks(torch, operands, waves):
         ops_ms = c["ops"] / FP32_OPS_PER_S * 1e3
         rows.append(dict(
             name=c["name"], wave=c.get("wave"), shape=c["shape"],
-            route="cuda", source=c["source"], replaces=c["replaces"],
+            route="cuda", **({"kernel_route": c["kernel_route"]} if "kernel_route" in c else {}),
+            source=c["source"], replaces=c["replaces"],
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -433,6 +476,21 @@ def _kernel_checks(torch, operands, waves):
     rows[0]["turns_ms"] = turns
     print(f"[kernel] xor_decrypt and torch.bitwise_xor in turns: {json.dumps(turns)}",
           flush=True)
+    # fused_transform's two routes at each wave in turns (vec, scalar,
+    # scalar, vec), three times
+    for w in range(len(waves)):
+        vec, scalar = (next(c for c in cases if c["name"] == n and c.get("wave") == w)
+                       for n, _, _ in ft_routes)
+        turns = {"fused_transform_vec": [], "fused_transform": []}
+        for _ in range(3):
+            turns["fused_transform_vec"].append(_queued_ms(torch, vec["kernel"]))
+            turns["fused_transform"].append(_queued_ms(torch, scalar["kernel"]))
+            turns["fused_transform"].append(_queued_ms(torch, scalar["kernel"]))
+            turns["fused_transform_vec"].append(_queued_ms(torch, vec["kernel"]))
+        next(r for r in rows if r["name"] == "fused_transform_vec"
+             and r["wave"] == w)["turns_ms"] = turns
+        print(f"[kernel] fused_transform wave {w} {vec['shape']}: vec and scalar routes in "
+              f"turns {json.dumps(turns)}", flush=True)
     # one entry per kernel: fused_transform's two waves (both launched for
     # every stripe) add up, and keep their own numbers under "waves"
     results = []
@@ -451,6 +509,8 @@ def _kernel_checks(torch, operands, waves):
         q.pop("wave")
         if q["waves"] is None:
             q.pop("waves")
+        else:
+            q.pop("turns_ms", None)       # each wave keeps its own
     return results
 
 
@@ -495,7 +555,28 @@ def _adversarial_checks(torch) -> None:
         ref.OP_BUCKETIZE_F: [(0, 0)] * 3,
         9: [(0, 0)],                       # unknown codes pass through
     }
-    for rows in (37, 70_000):
+    def ft_check(label, mat, c, a, b, bd):
+        """The features-major tile through the route it takes and, where that
+        is the vec route, through the general route too; then rows-major
+        (the general route), with and without borders."""
+        rm = mat.T.contiguous()
+        want_fm = ref.fused_transform(rm, c, a, b, bd).T
+        fm = [kft.fused_transform(mat, c, a, b, bd, features_major=True)]
+        vec = kft.route(mat, features_major=True) == "vec"
+        if vec:
+            fm += [kft.fused_transform_vec(mat, c, a, b, bd, features_major=True),
+                   kft.fused_transform_scalar(mat, c, a, b, bd, features_major=True)]
+        for got, want in [(g, want_fm) for g in fm] + [
+            (kft.fused_transform(rm, c, a, b, bd), ref.fused_transform(rm, c, a, b, bd)),
+            (kft.fused_transform(rm, c, a, b), ref.fused_transform(rm, c, a, b)),
+        ]:
+            if not torch.equal(got, want):
+                raise RuntimeError(f"fused_transform: adversarial {label} {tuple(mat.shape)} "
+                                   "differs")
+        return "vec and scalar routes" if vec else "scalar route"
+
+    # rows 4k (the vec route) and 4k+1..4k+3 (the general route)
+    for rows in (37, 38, 39, 40, 70_000, 70_001):
         rng = np.random.default_rng(rows)
         cols, codes, p0, p1, brd = [], [], [], [], []
         for code, pl in params.items():
@@ -510,17 +591,59 @@ def _adversarial_checks(torch) -> None:
                 brd.append(row)
         mat, c, a, b = cuda(np.stack(cols)), cuda(codes), cuda(p0), cuda(p1)
         bd = cuda(np.stack(brd), torch.float32)
-        rm = mat.T.contiguous()
-        for got, want in (
-            (kft.fused_transform(mat, c, a, b, bd, features_major=True),
-             ref.fused_transform(rm, c, a, b, bd).T),
-            (kft.fused_transform(rm, c, a, b, bd), ref.fused_transform(rm, c, a, b, bd)),
-            (kft.fused_transform(rm, c, a, b), ref.fused_transform(rm, c, a, b)),
-        ):
-            if not torch.equal(got, want):
-                raise RuntimeError(f"fused_transform: adversarial tile of {rows} rows differs")
-        print(f"[adversarial] fused_transform {tuple(mat.shape)} every op, both "
-              "layouts: bit-exact", flush=True)
+        taken = ft_check("every op", mat, c, a, b, bd)
+        print(f"[adversarial] fused_transform {tuple(mat.shape)} every op, both layouts, "
+              f"features-major by the {taken}: bit-exact", flush=True)
+
+    # BUCKETIZE_F border rows the engine never fuses, one per feature of a
+    # features-major tile: unsorted, ties, signed zeros, +inf inside and
+    # as padding, NaN, one NaN border, 300 sorted and 300 unsorted borders
+    # (several of a warp's check steps), subnormals; values NaN, +-inf,
+    # +-0, subnormal, on the borders and random
+    nb = 300
+    inf, nan = np.inf, np.nan
+    specials = [
+        [2.0, -1.0, 0.5, -3.0], [-1.0, -1.0, -1.0, 0.0, 0.0, 1.0, 1.0],
+        [-0.0, 0.0, -0.0, 0.0], [0.0, -0.0], [-1.0, inf, inf, inf], [inf],
+        [-inf, -inf, 0.0, inf], [-1.0, nan, 0.5], [nan], [0.0, 1.0, nan],
+        [1e-40, -1e-42, 3e-39], [-1e-40, 0.0, 1e-40], list(np.linspace(-3, 3, 63)),
+    ]
+    rng = np.random.default_rng(17)
+    brd_rows = [np.pad(np.array(r, np.float32), (0, nb - len(r)), constant_values=inf)
+                for r in specials]
+    brd_rows.append(np.sort(rng.standard_normal(nb).astype(np.float32)).round(1))
+    brd_rows.append(rng.standard_normal(nb).astype(np.float32))
+    bd = cuda(np.stack(brd_rows), torch.float32)
+    feats = len(brd_rows)
+    ties = np.array([-3.0, -1.0, -0.0, 0.0, 0.5, 1.0, 2.0, 1e-40, -1e-40, inf, -inf, nan,
+                     3e-39, -1e-42], np.float32)
+    c = cuda(np.full(feats, ref.OP_BUCKETIZE_F, np.int32))
+    z = cuda(np.zeros(feats, np.int32))
+    for rows in (4096, 4098):
+        vals = (rng.standard_normal((feats, rows)) * 3).astype(np.float32)
+        vals[:, : len(ties)] = ties
+        vals[:, len(ties): 2 * len(ties)] = ties[::-1]
+        taken = ft_check("BUCKETIZE_F borders", cuda(vals.view(np.int32)), c, z, z, bd)
+        print(f"[adversarial] fused_transform BUCKETIZE_F ({feats}, {rows}) on unsorted, "
+              f"tied, +-0.0, +inf and NaN border rows, by the {taken}: bit-exact", flush=True)
+
+    # views of one buffer: a base 16 bytes in (the vec route) and 4 bytes
+    # in (the general route)
+    flat = cuda(lanes(rng, 8 * 512 + 8, False))
+    for off in (4, 1):
+        mat = flat[off: off + 8 * 512].view(8, 512)
+        c8 = cuda(np.array([0, 1, 2, 3, 4, 5, 6, 9], np.int32))
+        a8 = cuda(np.array([0, 7, 0, -50, -100, bits(-1.0), 0, 0], np.int32))
+        b8 = cuda(np.array([0, 33, 13, 50, 10, bits(1.0), 0, 0], np.int32))
+        bd8 = cuda(np.stack([np.sort(rng.standard_normal(17) * 50)] * 8).astype(np.float32),
+                   torch.float32)
+        want = "vec" if off == 4 else "scalar"
+        if kft.route(mat, features_major=True) != want:
+            raise RuntimeError(f"fused_transform: a view {off * 4} bytes in takes "
+                               f"{kft.route(mat, features_major=True)}, expected {want}")
+        ft_check(f"view {off * 4} bytes in", mat, c8, a8, b8, bd8)
+    print("[adversarial] fused_transform views 16 bytes in (vec route) and 4 bytes in "
+          "(scalar route): bit-exact", flush=True)
 
     rng = np.random.default_rng(1)
     for n in (1, 40_000):
@@ -633,20 +756,33 @@ def _bag_adversarial_checks(torch) -> None:
     cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
 
     def check(name, table, ids, mask):
+        """Both modes through the route the operands take and, where that
+        is the warp route, through the block route too."""
         out = {}
+        fns = [kbag.embedding_bag]
+        if kbag.route(table) == "warp":
+            fns += [kbag.embedding_bag_warp, kbag.embedding_bag_block]
         for mode in ("mean", "sum"):
-            got = kbag.embedding_bag(table, ids, mask, mode=mode)
             want = ref.embedding_bag(table, ids, mask, mode=mode)
-            torch.cuda.synchronize()
-            if not _bits_equal(torch, got, want):
-                raise RuntimeError(f"embedding_bag ({mode}): {name} differs from the "
-                                   "plain version")
+            for fn in fns:
+                got = fn(table, ids, mask, mode=mode)
+                torch.cuda.synchronize()
+                if not _bits_equal(torch, got, want):
+                    raise RuntimeError(f"{fn.__name__} ({mode}): {name} differs from the "
+                                       "plain version")
             out[mode] = got
         return out
 
     rng = np.random.default_rng(12)
+    taken = {"warp": [], "block": []}
+    # E 1, 16, 40, 1000 and 42 (not a multiple of 4, over 512) and 4, 124,
+    # 128, 132, 512 (one to four 128-column stripes, partial stripes); L of
+    # 0, 1, 31, 32, 33 and 300 (runs of 32 slots and their ragged ends)
     for v, e, b, l in ((7, 1, 5, 3), (50, 16, 9, 8), (300, 40, 64, 33),
-                       (1000, 128, 100, 300), (64, 1000, 8, 5), (10, 128, 4, 0)):
+                       (1000, 128, 100, 300), (64, 1000, 8, 5), (10, 128, 4, 0),
+                       (100, 4, 40, 1), (200, 124, 33, 31), (300, 128, 50, 33),
+                       (150, 132, 20, 32), (64, 512, 16, 300), (500, 128, 17, 1),
+                       (80, 42, 9, 7), (90, 516, 6, 33)):
         table = rng.standard_normal((v, e)).astype(np.float32)
         ids = rng.integers(0, v, (b, l)).astype(np.int32)
         mask = (rng.random((b, l)) < 0.6).astype(np.float32)
@@ -656,12 +792,29 @@ def _bag_adversarial_checks(torch) -> None:
             ids[-2] = ids[-2, 0]                                             # duplicates
             ids[0, 0] = v - 1                                                # the last row
             ids[1, 0], ids[2, -1] = -3, v + 5                                # clamped
-        out = check(f"(V={v}, E={e}, B={b}, L={l})", cuda(table), cuda(ids), cuda(mask))
+        table, ids, mask = cuda(table), cuda(ids), cuda(mask)
+        taken[kbag.route(table)].append(e)
+        out = check(f"(V={v}, E={e}, B={b}, L={l})", table, ids, mask)
         empty = out["sum"][-1:] if l else out["sum"]
         if not torch.equal(empty, torch.zeros_like(empty)):
             raise RuntimeError("embedding_bag: an empty bag is not 0")
-    print("[adversarial] embedding_bag E in (1, 16, 40, 128, 1000), L up to 300, "
-          "empty/duplicate/last-row/clamped/fractional: bit-exact", flush=True)
+    print(f"[adversarial] embedding_bag E by the warp and block routes {taken}, L of 0, "
+          "1, 3, 5, 7, 8, 31, 32, 33 and 300, empty/duplicate/last-row/clamped/fractional: "
+          "bit-exact", flush=True)
+
+    # views of one buffer: a table 16 bytes in (the warp route) and 4 bytes
+    # in (the block route)
+    flat = cuda(rng.standard_normal(64 * 128 + 4).astype(np.float32))
+    ids = cuda(rng.integers(0, 64, (30, 33)).astype(np.int32))
+    mask = cuda((rng.random((30, 33)) < 0.7).astype(np.float32))
+    for off, want in ((4, "warp"), (1, "block")):
+        table = flat[off: off + 64 * 128].view(64, 128)
+        if kbag.route(table) != want:
+            raise RuntimeError(f"embedding_bag: a table {off * 4} bytes in takes "
+                               f"{kbag.route(table)}, expected {want}")
+        check(f"table {off * 4} bytes in", table, ids, mask)
+    print("[adversarial] embedding_bag tables 16 bytes in (warp route) and 4 bytes in "
+          "(block route): bit-exact", flush=True)
 
     table = np.array([[1, 2, 3, 4], [np.nan, np.inf, -np.inf, 1],
                       [1e-40, -1e-42, 3e-39, 5]], np.float32)
@@ -869,8 +1022,9 @@ def _train_path(torch):
     """The trainer path: serve the cut-vocab dlrm-paper session on the card,
     train on its batches on the card, compare each step with the CPU from
     the card's dense state, profile a third run;
-    returns the main run's launch counts and the kernel operands of the
-    profiled run's first fully-hot lookup."""
+    returns the main run's launch counts, the kernel operands of the
+    profiled run's first fully-hot lookup, and every bag of the first step
+    folded onto the same hot-slot table."""
     import dataclasses
 
     import numpy as np
@@ -902,8 +1056,12 @@ def _train_path(torch):
     trainer, store, gpu_s, _ = _train_run(torch, cfg, batches, tables, "cuda")
     launches = build.LAUNCHES.snapshot()
     print(f"[train] main path launches {launches}", flush=True)
-    if launches.get("embedding_bag", 0) <= 0 or store.stats.kernel_bags <= 0:
-        raise RuntimeError("the trainer path never launched embedding_bag")
+    if launches.get("embedding_bag_warp", 0) <= 0 or store.stats.kernel_bags <= 0:
+        raise RuntimeError("the trainer path never launched embedding_bag's warp route")
+    if launches.get("embedding_bag", 0) != 0:
+        raise RuntimeError(f"the trainer path launched embedding_bag's block route "
+                           f"{launches['embedding_bag']} times: every lookup must take "
+                           "the warp route")
     gpu_hist = trainer.history
     gpu_losses = np.array([m.loss for m in gpu_hist])
     if not np.isfinite(gpu_losses).all():
@@ -988,62 +1146,108 @@ def _train_path(torch):
     }}), flush=True)
     operands = store.operands
     del trainer, store
-    return launches, operands
+    # every bag of the first step as the hot tier would serve it once it
+    # covers the step: each table's ids folded onto its HOT_ROWS slots of
+    # the same flattened (T * HOT_ROWS, E) table
+    sid, smask = batches[0]["sparse_ids"], batches[0]["sparse_mask"]
+    t = sid.shape[1]
+    slot = sid % HOT_ROWS + (np.arange(t) * HOT_ROWS)[None, :, None]
+    step_bags = (slot.reshape(-1, sid.shape[2]).astype(np.int32),
+                 np.ascontiguousarray(smask.reshape(-1, sid.shape[2]), np.float32))
+    return launches, operands, step_bags
 
 
-def _bag_checks(torch, operands):
+def _bag_checks(torch, operands, step_bags, launches):
     """``embedding_bag`` at the operands of the trainer's first fully-hot
-    lookup: bit-exact against its plain version in both modes, times of
-    kernel, plain version and ``torch.nn.functional.embedding_bag``."""
+    lookup: both routes bit-exact against the plain version in both modes,
+    times of each route, the plain version and
+    ``torch.nn.functional.embedding_bag`` beside the bound, and the two
+    routes again in turns (warp, block, block, warp, three times): one row
+    for each route.  Then every bag of one step (``step_bags``) through
+    both routes: bit-exact and timed beside its bound and
+    ``F.embedding_bag``, not gated on time."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import embedding_bag as kbag
     from repro_torch.kernels import ref
 
+    routes = (("embedding_bag_warp", "warp", kbag.embedding_bag_warp),
+              ("embedding_bag", "block", kbag.embedding_bag_block))
+
+    def measure(table, ids, mask, label):
+        if kbag.route(table) != "warp":
+            raise RuntimeError(f"embedding_bag: {label} does not take the warp route")
+        for mode in ("mean", "sum"):
+            want = ref.embedding_bag(table, ids, mask, mode=mode)
+            for name, _, fn in routes:
+                got = fn(table, ids, mask, mode=mode)
+                torch.cuda.synchronize()
+                if not _bits_equal(torch, got, want):
+                    raise RuntimeError(f"{name} ({mode}): kernel disagrees with its plain "
+                                       f"version at {label}")
+        err = float((got - want).abs().max().item())
+        ids64 = ids.long()
+        denom = torch.clamp(mask.sum(1, keepdim=True), min=1.0)
+        plain = lambda: ref.embedding_bag(table, ids, mask, mode="mean")
+        library = lambda: F.embedding_bag(ids64, table, mode="sum",
+                                          per_sample_weights=mask) / denom
+        if not torch.allclose(library(), plain(), rtol=1e-5, atol=1e-6):
+            raise RuntimeError(f"F.embedding_bag disagrees with the plain version at {label}")
+        b, l = ids.shape
+        e = table.shape[1]
+        # the launch reads only the rows its ids name (every slot is read,
+        # masked ones too), plus ids and mask, and writes the (b, e) output
+        rows = int(torch.unique(ids).numel())
+        nbytes = rows * e * table.element_size() + sum(
+            t.numel() * t.element_size() for t in (ids, mask)) + 4 * b * e
+        flops = 2 * b * l * e
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / FP32_OPS_PER_S * 1e3
+        common = dict(
+            shape=f"table {tuple(table.shape)} ids/mask {tuple(ids.shape)} {label}, rows "
+                  f"read {rows}",
+            max_abs_err=err, plain_ms=_queued_ms(torch, plain, iters=5),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=_queued_ms(torch, library),
+            plain_call_ms=_call_ms(torch, plain, iters=20),
+            library_call_ms=_call_ms(torch, library),
+        )
+        out = []
+        for name, kernel_route, fn in routes:
+            kernel = lambda fn=fn: fn(table, ids, mask, mode="mean")
+            row = dict(name=name, route="cuda", kernel_route=kernel_route,
+                       source="src/repro_torch/csrc/embedding_bag.cu",
+                       replaces="src/repro/kernels/embedding_bag.py:40",
+                       launches=launches.get(name, 0), **common,
+                       ms=_queued_ms(torch, kernel), call_ms=_call_ms(torch, kernel))
+            out.append(row)
+            print(f"[kernel] {name} {row['shape']}: bit-exact (mean and sum), "
+                  f"kernel_ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} "
+                  f"library_ms={row['library_ms']:.6f} bound_ms={row['bound_ms']:.6f} "
+                  f"call_ms={row['call_ms']:.6f} plain_call_ms={row['plain_call_ms']:.6f} "
+                  f"library_call_ms={row['library_call_ms']:.6f}", flush=True)
+        turns = {name: [] for name, _, _ in routes}
+        order = [routes[0], routes[1], routes[1], routes[0]]
+        for _ in range(3):
+            for name, _, fn in order:
+                turns[name].append(
+                    _queued_ms(torch, lambda fn=fn: fn(table, ids, mask, mode="mean")))
+        out[0]["turns_ms"] = turns
+        print(f"[kernel] embedding_bag {label}: warp and block routes in turns "
+              f"{json.dumps(turns)}", flush=True)
+        return out
+
     table, ids, mask = (torch.from_numpy(a).cuda() for a in operands)
-    for mode in ("mean", "sum"):
-        got = kbag.embedding_bag(table, ids, mask, mode=mode)
-        want = ref.embedding_bag(table, ids, mask, mode=mode)
-        torch.cuda.synchronize()
-        if not _bits_equal(torch, got, want):
-            raise RuntimeError(f"embedding_bag ({mode}): kernel disagrees with its plain "
-                               "version at the main path's shapes")
-    err = float((got - want).abs().max().item())
-    ids64 = ids.long()
-    denom = torch.clamp(mask.sum(1, keepdim=True), min=1.0)
-    kernel = lambda: kbag.embedding_bag(table, ids, mask, mode="mean")
-    plain = lambda: ref.embedding_bag(table, ids, mask, mode="mean")
-    library = lambda: F.embedding_bag(ids64, table, mode="sum",
-                                      per_sample_weights=mask) / denom
-    want = plain()
-    if not torch.allclose(library(), want, rtol=1e-5, atol=1e-6):
-        raise RuntimeError("F.embedding_bag disagrees with the plain version")
-    b, l = ids.shape
-    e = table.shape[1]
-    # the launch reads only the rows its ids name (every slot is read,
-    # masked ones too), plus ids and mask, and writes the (b, e) output
-    rows = int(torch.unique(ids).numel())
-    nbytes = rows * e * table.element_size() + sum(
-        t.numel() * t.element_size() for t in (ids, mask)) + 4 * b * e
-    flops = 2 * b * l * e
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_OPS_PER_S * 1e3
-    row = dict(
-        name="embedding_bag", route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
-        replaces="src/repro/kernels/embedding_bag.py:40",
-        shape=f"table {tuple(table.shape)} ids/mask {tuple(ids.shape)} "
-              f"fully-hot bags {b} rows read {rows}",
-        max_abs_err=err, ms=_queued_ms(torch, kernel), plain_ms=_queued_ms(torch, plain, iters=5),
-        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=_queued_ms(torch, library), call_ms=_call_ms(torch, kernel),
-        plain_call_ms=_call_ms(torch, plain, iters=20), library_call_ms=_call_ms(torch, library),
-    )
-    print(f"[kernel] embedding_bag {row['shape']}: bit-exact (mean and sum), "
-          f"kernel_ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} "
-          f"library_ms={row['library_ms']:.6f} bound_ms={row['bound_ms']:.6f} "
-          f"(rows read {rows}) call_ms={row['call_ms']:.6f} plain_call_ms={row['plain_call_ms']:.6f} "
-          f"library_call_ms={row['library_call_ms']:.6f}", flush=True)
-    return row
+    rows = measure(table, ids, mask, f"the first fully-hot lookup, {ids.shape[0]} bags")
+    step_ids, step_mask = (torch.from_numpy(a).cuda() for a in step_bags)
+    step = measure(table, step_ids, step_mask,
+                   f"every bag of one step, {step_ids.shape[0]} bags")
+    for row, one_step in zip(rows, step):
+        row["one_step"] = {k: one_step[k] for k in (
+            "shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_call_ms", "turns_ms") if k in one_step}
+    return rows
 
 
 def _flash_close(got, want, v, dtype_name):
@@ -2154,9 +2358,14 @@ def main() -> int:
     from repro_torch.kernels import build
 
     t_all = t = time.perf_counter()
-    build.build(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        build.build(verbose=True)
+    print(log.getvalue(), end="", flush=True)
     build.library()
     print(f"[build] {time.perf_counter() - t:.1f} s", flush=True)
+    for line in _ptxas_summary(log.getvalue(), PTXAS_KERNELS):
+        print(f"[ptxas] {line}", flush=True)
     t = time.perf_counter()
     _warm_profiler(torch)
     print(f"[profiler] first session {time.perf_counter() - t:.1f} s", flush=True)
@@ -2181,9 +2390,13 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = build.LAUNCHES.snapshot()
     print(f"[serve] main path launches {launches}", flush=True)
-    for name in ("xor_decrypt", "dense_unpack", "ragged_gather", "fused_transform"):
+    for name in ("xor_decrypt", "dense_unpack", "ragged_gather", "fused_transform_vec"):
         if launches.get(name, 0) <= 0:
             raise RuntimeError(f"the main path never launched {name}")
+    if launches.get("fused_transform", 0) != 0:
+        raise RuntimeError(f"the main path launched fused_transform's general route "
+                           f"{launches['fused_transform']} times: every engine tile must "
+                           "take the vec route")
     n_rows = sum(p.num_rows for p in session.table.partitions.values())
     if sum(len(b["label"]) for b in batches) != n_rows or len(batches) != n_rows // BATCH:
         raise RuntimeError(f"served {len(batches)} batches, expected {n_rows // BATCH}")
@@ -2214,17 +2427,15 @@ def main() -> int:
     }}), flush=True)
 
     for r in results:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches.get(r["name"], 0)
     results.extend(standalone)            # on no path of the port: 0 launches
     print(f"[phase] serving path {time.perf_counter() - t:.1f} s", flush=True)
 
     t = time.perf_counter()
-    train_launches, bag_operands = _train_path(torch)
+    train_launches, bag_operands, step_bags = _train_path(torch)
     print(f"[phase] trainer path {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
-    bag = _bag_checks(torch, bag_operands)
-    bag["launches"] = train_launches["embedding_bag"]
-    results.append(bag)
+    results.extend(_bag_checks(torch, bag_operands, step_bags, train_launches))
     print(f"[phase] embedding_bag checks {time.perf_counter() - t:.1f} s", flush=True)
 
     t = time.perf_counter()

@@ -48,7 +48,9 @@ SIGNATURES = {
     "fused_transform_launch": (
         _P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _P,
     ),
+    "fused_transform_vec_launch": (_P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _P),
     "embedding_bag_launch": (_P, _P, _P, _P, _I64, _I32, _I64, _I32, _I32, _P),
+    "embedding_bag_warp_launch": (_P, _P, _P, _P, _I64, _I32, _I64, _I32, _I32, _P),
     "flash_attention_launch": (
         _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
         _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,

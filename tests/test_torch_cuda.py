@@ -16,7 +16,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import bucketize as kbucketize  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import embedding_bag as kbag  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
+from repro_torch.kernels import fused_transform as kft  # noqa: E402
 from repro_torch.kernels import sigrid_hash as ksigrid  # noqa: E402
 from repro_torch.kernels import ssd_chunk as kssd  # noqa: E402
 
@@ -316,3 +318,161 @@ def test_bucketize_kernel_bit_exact(cuda):
         bd = bd.to(cuda)
         for t in values:
             assert torch.equal(kbucketize.bucketize(t, bd), ref.bucketize(t, bd))
+
+
+def _f32_bits(v):
+    return int(np.float32(v).view(np.int32))
+
+
+def _wave(rng, feats, rows, codes, nb=63, borders=None):
+    """A features-major int32 tile with its op codes, params and borders:
+    floats (NaN, +-inf, +-0.0, subnormals among them) in CLAMP_F and
+    BUCKETIZE_F features, full-range ints in the others."""
+    ints = rng.integers(-(2 ** 31), 2 ** 31, (feats, rows), dtype=np.int64).astype(np.int32)
+    floats = (rng.standard_normal((feats, rows)) * 3).astype(np.float32)
+    special = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-40, -1e-40, 1.0, -1.0][:rows]
+    floats[:, : len(special)] = special
+    is_f = np.isin(codes, (ref.OP_CLAMP_F, ref.OP_BUCKETIZE_F))[:, None]
+    mat = np.where(is_f, floats.view(np.int32), ints)
+    p0 = np.where(codes == ref.OP_CLAMP_F, _f32_bits(-1.5), 7).astype(np.int32)
+    p1 = np.where(codes == ref.OP_CLAMP_F, _f32_bits(2.0), 1009).astype(np.int32)
+    p0[codes == ref.OP_CLAMP] = -50
+    p1[codes == ref.OP_CLAMP] = 50
+    if borders is None:
+        borders = np.tile(np.linspace(-3, 3, nb).astype(np.float32), (feats, 1))
+    return mat, codes.astype(np.int32), p0, p1, borders.astype(np.float32)
+
+
+def _ft_both_routes(cuda, mat, codes, p0, p1, brd):
+    """The tile through ``fused_transform``, and through both routes where
+    the vec route takes it; each bit-exact against the plain version."""
+    m, c, a, b, bd = (torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+                      for x in (mat, codes, p0, p1, brd))
+    want = ref.fused_transform(m.T.contiguous(), c, a, b, bd).T
+    fns = [kft.fused_transform]
+    if kft.route(m, features_major=True) == "vec":
+        fns += [kft.fused_transform_vec, kft.fused_transform_scalar]
+    for fn in fns:
+        got = fn(m, c, a, b, bd, features_major=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), fn.__name__
+    return kft.route(m, features_major=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feats,rows,kind", [
+    (32, 1024, "hash"),          # wave 0 cut: SigridHash ids
+    (21, 512, "dense"),          # wave 1 cut: CLAMP_F and BUCKETIZE_F over 63 borders
+    (14, 2048, "every op"),
+])
+def test_fused_transform_routes_match_plain(cuda, feats, rows, kind):
+    """Small versions of the main path's two waves and a tile of every op
+    code, features-major with rows a multiple of 4: the vec route the
+    engine's tiles take and the general route, bit-exact."""
+    rng = np.random.default_rng(feats + rows)
+    codes = {"hash": np.full(feats, ref.OP_SIGRID_HASH),
+             "dense": np.array([ref.OP_CLAMP_F] * 5 + [ref.OP_BUCKETIZE_F] * (feats - 5)),
+             "every op": np.arange(feats) % 8}[kind]
+    assert _ft_both_routes(cuda, *_wave(rng, feats, rows, codes)) == "vec"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [37, 38, 39, 40, 1, 4])
+def test_fused_transform_ragged_rows_match_plain(cuda, rows):
+    """Rows 4k+1..4k+3 take the general route, 4k the vec route; both
+    bit-exact on every op code."""
+    rng = np.random.default_rng(rows)
+    taken = _ft_both_routes(cuda, *_wave(rng, 8, rows, np.arange(8)))
+    assert taken == ("vec" if rows % 4 == 0 else "scalar")
+
+
+@pytest.mark.cuda
+def test_fused_transform_vec_route_counts_unsorted_and_nan_borders(cuda):
+    """BUCKETIZE_F border rows the engine never fuses, in a features-major
+    tile the vec route takes: unsorted, tied, signed zeros, +inf inside the
+    row, NaN, one NaN border, 300 unsorted borders; the count's bits."""
+    inf, nan = np.inf, np.nan
+    nb = 300
+    rows_b = [[2.0, -1.0, 0.5, -3.0], [-1.0, -1.0, -1.0, 0.0, 0.0, 1.0], [-0.0, 0.0, -0.0],
+              [0.0, -0.0], [-1.0, inf, inf], [-1.0, nan, 0.5], [nan], [0.0, 1.0, nan],
+              [1e-40, -1e-42, 3e-39]]
+    rng = np.random.default_rng(3)
+    brd = np.stack([np.pad(np.array(r, np.float32), (0, nb - len(r)), constant_values=inf)
+                    for r in rows_b] + [rng.standard_normal(nb).astype(np.float32)])
+    feats = brd.shape[0]
+    codes = np.full(feats, ref.OP_BUCKETIZE_F)
+    assert _ft_both_routes(cuda, *_wave(rng, feats, 1024, codes, borders=brd)) == "vec"
+
+
+def _bag_operands(cuda, rng, v, e, b, l):
+    table = rng.standard_normal((v, e)).astype(np.float32)
+    table[1, :2] = [np.nan, np.inf]
+    table[2] = 1e-40
+    ids = rng.integers(0, v, (b, l)).astype(np.int32)
+    mask = (rng.random((b, l)) < 0.7).astype(np.float32)
+    if l:
+        mask[0] *= 0.37                    # fractional weights
+        mask[-1] = 0.0                     # an empty bag
+        ids[1, 0], ids[-2, -1] = -5, v + 2  # clamped
+        ids[2, 0] = 1                      # NaN/inf row ...
+        mask[2, 0] = 0.0                   # ... under a mask of 0
+    return tuple(torch.from_numpy(x).to(cuda) for x in (table, ids, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,e,b,l", [
+    (4096, 128, 300, 32),        # the trainer's lookup, cut: E 128, 32 slots
+    (64, 4, 40, 1), (200, 124, 33, 31), (300, 128, 50, 33), (150, 132, 20, 32),
+    (64, 512, 16, 300), (80, 40, 9, 7),
+])
+def test_embedding_bag_routes_match_plain(cuda, v, e, b, l):
+    """E a multiple of 4 up to 512 takes the warp route; it and the block
+    route give the plain version's bits in both modes (L of 1 to 300, E of
+    one to four 128-column stripes, NaN/inf rows under a mask of 0,
+    subnormal rows, clamped ids, an empty bag)."""
+    rng = np.random.default_rng(e + l)
+    table, ids, mask = _bag_operands(cuda, rng, v, e, b, l)
+    assert kbag.route(table) == "warp"
+    for mode in ("mean", "sum"):
+        want = ref.embedding_bag(table, ids, mask, mode=mode).view(torch.int32)
+        for fn in (kbag.embedding_bag, kbag.embedding_bag_warp, kbag.embedding_bag_block):
+            got = fn(table, ids, mask, mode=mode)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), want), (fn.__name__, mode)
+
+
+@pytest.mark.cuda
+def test_fused_transform_and_embedding_bag_route_counts(cuda):
+    """Each call counts under its route's name only: a features-major tile
+    with rows a multiple of 4 and E of 128 launch the new routes, a
+    rows-major tile, 37 rows and E of 42 the general ones; the new routes'
+    wrappers refuse what they do not take."""
+    rng = np.random.default_rng(9)
+    names = ("fused_transform", "fused_transform_vec", "embedding_bag", "embedding_bag_warp")
+
+    def moved(fn):
+        before = build.LAUNCHES.snapshot()
+        fn()
+        torch.cuda.synchronize()
+        after = build.LAUNCHES.snapshot()
+        return {n: after.get(n, 0) - before.get(n, 0) for n in names
+                if after.get(n, 0) != before.get(n, 0)}
+
+    m, c, a, b, bd = (torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+                      for x in _wave(rng, 8, 512, np.arange(8)))
+    ragged = m[:, :37].contiguous()
+    assert moved(lambda: kft.fused_transform(m, c, a, b, bd, features_major=True)) == \
+        {"fused_transform_vec": 1}
+    assert moved(lambda: kft.fused_transform(m.T.contiguous(), c, a, b, bd)) == \
+        {"fused_transform": 1}
+    assert moved(lambda: kft.fused_transform(ragged, c, a, b, bd, features_major=True)) == \
+        {"fused_transform": 1}
+    with pytest.raises(ValueError, match="fused_transform_vec: takes features-major"):
+        kft.fused_transform_vec(ragged, c, a, b, bd, features_major=True)
+    table, ids, mask = _bag_operands(cuda, rng, 64, 128, 10, 32)
+    narrow, _, _ = _bag_operands(cuda, rng, 64, 42, 10, 32)
+    assert moved(lambda: kbag.embedding_bag(table, ids, mask)) == {"embedding_bag_warp": 1}
+    assert moved(lambda: kbag.embedding_bag(narrow, ids, mask)) == {"embedding_bag": 1}
+    with pytest.raises(ValueError, match="embedding_bag_warp: takes E a multiple of 4"):
+        kbag.embedding_bag_warp(narrow, ids, mask)
+

@@ -12,15 +12,23 @@ P and N of 64 or 128, a chunk that is a multiple of 64, views whose rows
 16-byte copies read: ``tma_strides``' rule); its tensor-core decomposition
 and roundings are
 mirrored in plain PyTorch (``ssd_chunk.sm90_form``) and held to the
-sequential recurrence and to the Pallas kernel in interpret mode.  The
-kernels themselves run in ``tests/test_torch_cuda.py``.
+sequential recurrence and to the Pallas kernel in interpret mode.
+``fused_transform`` sends features-major tiles with rows a multiple of 4
+and 16-byte aligned bases to its 16-byte-lane route, and
+``embedding_bag`` sends E a multiple of 4 up to 512 with a 16-byte
+aligned table to its warp route; both rules are held here, with plain
+PyTorch mirrors of the vec route's BUCKETIZE_F search and vote and of the
+warp route's column and slot order.  The kernels themselves run in
+``tests/test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import embedding_bag as kbag  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
+from repro_torch.kernels import fused_transform as kft  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd_chunk as kssd  # noqa: E402
 
@@ -314,3 +322,229 @@ def test_sm90_form_matches_the_recurrence_and_the_pallas_kernel(b, s, h, p, g, n
                                 chunk=chunk, use_pallas=True)
     jy = torch.from_numpy(np.asarray(jy, np.float32)).reshape(b, h, s, p).permute(0, 2, 1, 3)
     _ssd_close(y, jy, SSD_TOL["y"])
+
+
+# -- fused_transform's and embedding_bag's routes --------------------------------------
+
+def _tile(feats, rows, device="cpu"):
+    """An engine wave's packed tile: features-major (F, rows) int32."""
+    return torch.zeros((feats, rows), dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("feats,rows", [(32, 8192), (171, 512), (1, 4), (3, 516)])
+def test_fused_transform_route_takes_the_engine_tiles(feats, rows):
+    """The main path's two waves (32 x 8192 sparse ids, 171 x 512 dense
+    values) and any features-major tile with rows a multiple of 4 take the
+    vec route; the same tile handed over rows-major takes the general one."""
+    fm = _tile(feats, rows)
+    assert kft.route(fm, features_major=True) == "vec"
+    assert kft.route(fm.T.contiguous(), features_major=False) == "scalar"
+    assert kft.route(fm, features_major=False) == "scalar"
+
+
+@pytest.mark.parametrize("rows", [8193, 513, 514, 515, 1, 2, 3])
+def test_fused_transform_route_sends_ragged_rows_to_scalar(rows):
+    assert kft.route(_tile(4, rows), features_major=True) == "scalar"
+
+
+def test_fused_transform_route_reads_the_base_address():
+    """Contiguous views of one buffer: a base 16 or 32 bytes in takes the
+    vec route, 4, 8 or 12 bytes in the general one; so do non-contiguous
+    and 1-D operands, and more than 65535 features."""
+    flat = torch.zeros(4 * 512 + 8, dtype=torch.int32)
+    for off, want in ((0, "vec"), (4, "vec"), (8, "vec"), (1, "scalar"), (2, "scalar"),
+                      (3, "scalar")):
+        view = flat[off: off + 4 * 512].view(4, 512)
+        assert view.is_contiguous()
+        assert kft.route(view, features_major=True) == want, off
+    assert kft.route(_tile(8, 1024)[:, ::2], features_major=True) == "scalar"
+    assert kft.route(_tile(8, 1024)[:, :512], features_major=True) == "scalar"
+    assert kft.route(flat[:512], features_major=True) == "scalar"
+    assert kft.route(_tile(65535, 4), features_major=True) == "vec"
+    assert kft.route(_tile(65536, 4), features_major=True) == "scalar"     # grid.y
+
+
+@pytest.mark.parametrize("e", [4, 40, 124, 128, 132, 512])
+def test_embedding_bag_route_takes_e_a_multiple_of_4_up_to_512(e):
+    """The trainer's (43008, 128) hot-slot table and every E a multiple of
+    4 up to 512 take the warp route."""
+    assert kbag.route(torch.empty((43008 if e == 128 else 64, e))) == "warp"
+
+
+@pytest.mark.parametrize("e", [1, 2, 6, 42, 516, 1000])
+def test_embedding_bag_route_sends_other_widths_to_block(e):
+    assert kbag.route(torch.empty((64, e))) == "block"
+
+
+def test_embedding_bag_route_reads_the_table_base():
+    """Contiguous tables cut from one buffer: 16 bytes in takes the warp
+    route, 4, 8 or 12 bytes in the block route."""
+    flat = torch.zeros(64 * 128 + 4)
+    for off, want in ((0, "warp"), (4, "warp"), (1, "block"), (2, "block"), (3, "block")):
+        table = flat[off: off + 64 * 128].view(64, 128)
+        assert kbag.route(table) == want, off
+
+
+def test_fused_transform_and_embedding_bag_routes_decide_the_same_on_any_device():
+    """The rules read layouts, shapes, strides and base addresses only: the
+    same operands on the CPU and on the meta device take the same route."""
+    for feats, rows, fm in ((32, 8192, True), (171, 512, True), (7, 514, True),
+                            (8192, 32, False)):
+        routes = {kft.route(_tile(feats, rows, d), features_major=fm) for d in ("cpu", "meta")}
+        assert len(routes) == 1, (feats, rows, fm, routes)
+    for e in (4, 128, 132, 512, 42, 1000):
+        routes = {kbag.route(torch.empty((16, e), device=d)) for d in ("cpu", "meta")}
+        assert len(routes) == 1, (e, routes)
+
+
+def test_fused_transform_and_embedding_bag_wrappers_refuse_cpu_tensors():
+    """No silent fallback: each route's wrapper takes CUDA tensors only,
+    and a CPU tensor through ``kernels.ops`` reaches the plain version and
+    launches nothing."""
+    from repro_torch.kernels import build, ops
+
+    tile = _tile(4, 512)
+    z = torch.zeros(4, dtype=torch.int32)
+    for fn in (kft.fused_transform, kft.fused_transform_vec, kft.fused_transform_scalar):
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            fn(tile, z, z, z, features_major=True)
+    table = torch.zeros((64, 128))
+    ids = torch.zeros((3, 7), dtype=torch.int32)
+    for fn in (kbag.embedding_bag, kbag.embedding_bag_warp, kbag.embedding_bag_block):
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            fn(table, ids, ids.float())
+    before = build.LAUNCHES.snapshot()
+    codes = torch.tensor([0, 1, 5, 6], dtype=torch.int32)
+    got = ops.fused_transform(tile, codes, z, z + 3, features_major=True)
+    assert torch.equal(got, ref.fused_transform(tile.T, codes, z, z + 3).T)
+    assert torch.equal(ops.embedding_bag(table, ids, ids.float()),
+                       ref.embedding_bag(table, ids, ids.float()))
+    assert build.LAUNCHES.snapshot() == before
+
+
+def _fused_bucketize_mirror(tile: torch.Tensor, borders: torch.Tensor) -> torch.Tensor:
+    """The vec route's BUCKETIZE_F in plain PyTorch: every warp of a
+    feature's blocks votes on the feature's border row (``_sorted_nan_free``);
+    where the vote holds, the branch-free search (``_search``) gives each
+    value's bucket, else the count in the borders' order.  tile (F, rows)
+    int32 float bits, borders (F, nb) -> (F, rows) int32."""
+    rows = []
+    for f in range(tile.shape[0]):
+        v, b = tile[f].view(torch.float32), borders[f]
+        if _sorted_nan_free(b):
+            rows.append(_search(v, b))
+        else:
+            rows.append((v[:, None] > b[None, :]).sum(1, dtype=torch.int32))
+    return torch.stack(rows)
+
+
+def test_fused_bucketize_search_equals_the_count_on_every_border_row():
+    """A features-major BUCKETIZE_F wave with the engine's +inf padding, one
+    border row a feature: sorted, tied, -0.0/+0.0, +inf inside the row,
+    all +inf, -inf, subnormal, NaN and unsorted rows, a single border, 63
+    and 300 borders; values NaN, +-inf, +-0.0, subnormal, on the borders
+    and random.  The mirror of the vec route equals ``ref.fused_transform``
+    bit for bit, and the Pallas kernel in interpret mode; sorted rows pass
+    the vote and are searched, NaN and unsorted rows fail it."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ops as jops
+
+    inf, nan = float("inf"), float("nan")
+    nb = 300
+    specials = [
+        [-1.0, 0.0, 1.0], [-1.0, -1.0, -1.0, 0.0, 0.0, 1.0, 1.0], [-0.0, 0.0, -0.0, 0.0],
+        [0.0, -0.0], [-1.0, inf, inf], [inf], [-inf, -inf, 0.0, inf], [1e-40, 3e-39],
+        [-1e-40, 0.0, 1e-40], [0.5], list(np.linspace(-3, 3, 63)),
+        [2.0, -1.0, 0.5, -3.0], [-1.0, nan, 0.5], [nan], [0.0, 1.0, nan],
+        [1e-40, -1e-42, 3e-39], [0.0, -1e-40],
+    ]
+    rng = np.random.default_rng(17)
+    rows_b = [np.pad(np.array(r, np.float32), (0, nb - len(r)), constant_values=inf)
+              for r in specials]
+    rows_b.append(np.sort(rng.standard_normal(nb).astype(np.float32)).round(1))
+    rows_b.append(rng.standard_normal(nb).astype(np.float32))
+    borders = torch.from_numpy(np.stack(rows_b))
+    feats = borders.shape[0]
+    vals = (rng.standard_normal((feats, 512)) * 3).astype(np.float32)
+    edge = np.array([nan, inf, -inf, 0.0, -0.0, 1e-40, -1e-40, 3e-39, -1e-42, 0.5, 1.0,
+                     -1.0, 2.0, -3.0, 3.0], np.float32)
+    vals[:, : len(edge)] = edge
+    vals[:, len(edge): 2 * len(edge)] = edge[::-1]
+    tile = torch.from_numpy(vals.view(np.int32))
+    votes = [_sorted_nan_free(b) for b in borders]
+    assert votes == [True] * 11 + [False] * 6 + [True, False]
+    codes = torch.full((feats,), ref.OP_BUCKETIZE_F, dtype=torch.int32)
+    z = torch.zeros(feats, dtype=torch.int32)
+    want = ref.fused_transform(tile.T.contiguous(), codes, z, z, borders).T
+    assert torch.equal(_fused_bucketize_mirror(tile, borders), want)
+    # the Pallas kernel on the CPU flushes subnormals in its compares (a
+    # known difference: the engine never fuses them), so it is held on the
+    # rows and values without them
+    tiny = np.finfo(np.float32).tiny
+    sub = lambda a: (a != 0) & (np.abs(a) < tiny)             # noqa: E731
+    keep = [f for f in range(feats) if not sub(rows_b[f]).any()]
+    jvals = np.where(sub(vals), np.float32(0.25), vals)[keep]
+    jb = borders.numpy()[keep]
+    jz = np.zeros(len(keep), np.int32)
+    jwant = jops.fused_transform(jnp.asarray(jvals.view(np.int32).T.copy()),
+                                 jnp.asarray(jz + ref.OP_BUCKETIZE_F), jnp.asarray(jz),
+                                 jnp.asarray(jz), jnp.asarray(jb), use_pallas=True)
+    mirror = _fused_bucketize_mirror(torch.from_numpy(jvals.view(np.int32)), torch.from_numpy(jb))
+    assert len(keep) == feats - 4
+    np.testing.assert_array_equal(np.asarray(jwant).T, mirror.numpy())
+
+
+def _warp_bag_mirror(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
+                     mode: str) -> torch.Tensor:
+    """The warp route's arithmetic in plain PyTorch: lane j of a bag's warp
+    owns columns 4j..4j+3 of each 128-column stripe; slots run in runs of
+    32, handed out by lane; each slot's row times its weight is added in
+    slot order, and the denominator is summed in the same order."""
+    v, e = table.shape
+    b, l = ids.shape
+    out = torch.empty((b, e))
+    for lane in range(32):
+        cols = [c for s in range(-(-e // 128)) for c in range(128 * s + 4 * lane,
+                                                              128 * s + 4 * lane + 4) if c < e]
+        if not cols:
+            continue
+        acc = torch.zeros((b, len(cols)))
+        denom = torch.zeros((b, 1))
+        for l0 in range(0, l, 32):
+            run_ids = ids[:, l0: l0 + 32].long().clamp(0, v - 1)
+            run_w = mask[:, l0: l0 + 32]
+            for i in range(run_ids.shape[1]):
+                w = run_w[:, i: i + 1]
+                acc = acc + table[run_ids[:, i]][:, cols] * w
+                denom = denom + w
+        if mode == "mean":
+            acc = acc / torch.maximum(denom, torch.ones_like(denom))
+        out[:, cols] = acc
+    return out
+
+
+@pytest.mark.parametrize("e,l", [(4, 1), (124, 31), (128, 33), (132, 32), (512, 300)])
+def test_warp_bag_order_equals_the_plain_version(e, l):
+    """The warp route's lanes cover every column once and its runs of 32
+    slots add in the plain version's order, so the bits are the same: in
+    both modes, with fractional weights, empty bags, clamped ids, NaN and
+    inf rows under a mask of 0 and subnormal rows."""
+    rng = np.random.default_rng(e + l)
+    v, b = 50, 9
+    table = rng.standard_normal((v, e)).astype(np.float32)
+    table[3, :2] = [np.nan, np.inf]
+    table[4] = 1e-40
+    ids = rng.integers(0, v, (b, l)).astype(np.int32)
+    ids[0, 0], ids[1, -1] = -2, v + 3
+    ids[2] = 3
+    mask = (rng.random((b, l)) < 0.6).astype(np.float32) * rng.random((b, l)).astype(
+        np.float32) * 3
+    mask[2] = 0.0
+    mask[4, 0] = 1.0
+    ids[4, 0] = 4
+    t, i, m = torch.from_numpy(table), torch.from_numpy(ids), torch.from_numpy(mask)
+    for mode in ("mean", "sum"):
+        got = _warp_bag_mirror(t, i, m, mode)
+        want = ref.embedding_bag(t, i, m, mode=mode)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), mode
+        assert torch.isnan(got[2, :2]).all()
