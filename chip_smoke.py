@@ -6,26 +6,30 @@
 1. Requires CUDA and prints the card's name and power limit.
 2. Builds the CUDA kernels from ``src/repro_torch/csrc`` (timed) and
    prints ``-Xptxas -v``'s registers and spills of both routes of
-   ``fused_transform`` and ``embedding_bag``.
+   ``fused_transform``, ``embedding_bag``, ``dense_unpack`` and
+   ``ragged_gather``.
 3. Captures the data path's kernel operands from one stripe of the
    full-width ``dlrm-paper`` data path, holds each kernel bit-exact
    (``torch.equal``) against its plain PyTorch version on the card, and
    times kernel, plain version and, where one exists, the single PyTorch
    call computing the same function (device time and call time both from
-   CUDA events: ``_queued_ms``, ``_call_ms``); ``fused_transform`` by
-   both routes, its 16-byte-lane route the engine's tiles take and its
-   general route.  Then holds each kernel (both routes where the vec or
-   warp route takes the operands) bit-exact on
+   CUDA events: ``_queued_ms``, ``_call_ms``); ``fused_transform``,
+   ``dense_unpack`` and ``ragged_gather`` by both routes, the route the
+   engine's operands take and the general route.  Then holds each kernel
+   (both routes where the new route takes the operands) bit-exact on
    adversarial inputs the main path never makes (NaN payloads, signed
    zeros, subnormals, extreme parameters, both tile layouts, rows 4k to
    4k+3, unsorted, tied, signed-zero, +inf and NaN border rows, aligned
-   and unaligned views, long bitmaps,
-   every byte shift; for ``embedding_bag`` empty bags, duplicate ids, the
+   and unaligned views, bitmaps of 1 to 33 and 1,250 words with C of 1
+   to above 32 W, all-absent and all-present features, every byte shift,
+   non-consecutive, straddling and mixed-shift index pairs, the last word
+   pair; for ``embedding_bag`` empty bags, duplicate ids, the
    last row, fractional weights, L of 0 to 300 and E of 1 to 1000,
    NaN/inf rows under a mask of
    0, subnormal rows, a table of more than 2^31 elements);
-   ``xor_decrypt`` and ``torch.bitwise_xor`` again in turns, and
-   ``fused_transform``'s two routes in turns at each wave.  Then the
+   ``xor_decrypt`` and ``torch.bitwise_xor`` again in turns, and the two
+   routes of ``dense_unpack``, of ``ragged_gather`` and of
+   ``fused_transform`` (at each wave) in turns.  Then the
    standalone ``sigrid_hash`` and ``bucketize`` (no path launches them)
    bit-exact at one batch's tiles and on adversarial inputs, and timed
    (``bucketize`` also with tied, 5,000 sorted and 5,000 unsorted
@@ -33,7 +37,9 @@
 4. The serving path: serves every batch of the full-width ``dlrm-paper``
    DPP session through ``dlrm_dpp_batches(CONFIG, 512, device="cuda")``
    with the launch counts set to 0 just before, checks that every data
-   path kernel launched (``fused_transform`` by its vec route only), that
+   path kernel launched (``fused_transform`` by its vec route only,
+   ``dense_unpack`` and ``ragged_gather`` once a stripe by their warp and
+   vec routes only), that
    the batches have the expected shapes and
    finite dense values, and that they are byte-identical (as a multiset:
    workers race) to the port's numpy-engine session on the same data;
@@ -101,9 +107,10 @@
    route), both routes timed beside the bound and in turns.  Then a
    depth-2, full-width model from one set of weights on the card and on
    the CPU (prompt 512).
-9. Prints one JSON line with every kernel's numbers (thirteen: the nine
-   TPU kernels' ports, ``fused_transform``, ``embedding_bag``, flash
-   attention and the SSD scan by both of their routes), the card's line,
+9. Prints one JSON line with every kernel's numbers (fifteen: the nine
+   TPU kernels' ports, ``fused_transform``, ``dense_unpack``,
+   ``ragged_gather``, ``embedding_bag``, flash attention and the SSD scan
+   by both of their routes), the card's line,
    and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -166,7 +173,9 @@ SSM_CAPTURE_LAYERS = (0, 63)
 SSD_TOL = {"float32": (5e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}
 # kernels whose registers and spills the build prints on their own lines
 PTXAS_KERNELS = ("fused_transform_kernel", "fused_transform_vec_kernel",
-                 "embedding_bag_kernel", "embedding_bag_warp_kernel")
+                 "embedding_bag_kernel", "embedding_bag_warp_kernel",
+                 "dense_unpack_kernel", "dense_unpack_warp_kernel",
+                 "ragged_gather_kernel", "ragged_gather_vec_kernel")
 
 
 def _setup():
@@ -386,25 +395,35 @@ def _kernel_checks(torch, operands, waves):
         bytes=2 * nbytes(words), ops=words.numel(),
         shape=f"words {tuple(words.shape)}",
     ))
+    # dense_unpack and ragged_gather by both routes each: the route the
+    # engine's operands take and the general route on the same operands
     bm, vals = operands["dense_unpack"]
-    out_elems = bm.shape[0] * bm.shape[1] * 32
-    cases.append(dict(
-        name="dense_unpack", source="src/repro_torch/csrc/decode.cu",
-        replaces="src/repro/kernels/decode.py:87",
-        kernel=lambda: kdecode.dense_unpack(bm, vals),
-        plain=lambda: ref.dense_unpack(bm, vals), library=None,
-        bytes=nbytes(bm, vals) + 4 * out_elems, ops=6 * out_elems,
-        shape=f"bitmap {tuple(bm.shape)} values {tuple(vals.shape)}",
-    ))
     src, idx, sh = operands["ragged_gather"]
-    cases.append(dict(
-        name="ragged_gather", source="src/repro_torch/csrc/decode.cu",
-        replaces="src/repro/kernels/decode.py:125",
-        kernel=lambda: kdecode.ragged_gather(src, idx, sh),
-        plain=lambda: ref.ragged_gather(src, idx, sh), library=None,
-        bytes=nbytes(src, idx, sh) + nbytes(idx), ops=4 * idx.numel(),
-        shape=f"src {tuple(src.shape)} idx {tuple(idx.shape)}",
-    ))
+    if kdecode.dense_unpack_route(bm) != "warp":
+        raise RuntimeError(f"the main path's bitmap {tuple(bm.shape)} does not take the warp route")
+    if kdecode.ragged_gather_route(idx, sh) != "vec":
+        raise RuntimeError(f"the main path's idx {tuple(idx.shape)} does not take the vec route")
+    out_elems = bm.shape[0] * bm.shape[1] * 32
+    for name, kernel_route, fn in (("dense_unpack_warp", "warp", kdecode.dense_unpack_warp),
+                                   ("dense_unpack", "block", kdecode.dense_unpack_block)):
+        cases.append(dict(
+            name=name, kernel_route=kernel_route, source="src/repro_torch/csrc/decode.cu",
+            replaces="src/repro/kernels/decode.py:87",
+            kernel=lambda fn=fn: fn(bm, vals),
+            plain=lambda: ref.dense_unpack(bm, vals), library=None,
+            bytes=nbytes(bm, vals) + 4 * out_elems, ops=6 * out_elems,
+            shape=f"bitmap {tuple(bm.shape)} values {tuple(vals.shape)}",
+        ))
+    for name, kernel_route, fn in (("ragged_gather_vec", "vec", kdecode.ragged_gather_vec),
+                                   ("ragged_gather", "scalar", kdecode.ragged_gather_scalar)):
+        cases.append(dict(
+            name=name, kernel_route=kernel_route, source="src/repro_torch/csrc/decode.cu",
+            replaces="src/repro/kernels/decode.py:125",
+            kernel=lambda fn=fn: fn(src, idx, sh),
+            plain=lambda: ref.ragged_gather(src, idx, sh), library=None,
+            bytes=nbytes(src, idx, sh) + nbytes(idx), ops=4 * idx.numel(),
+            shape=f"src {tuple(src.shape)} idx {tuple(idx.shape)}",
+        ))
     # fused_transform by both routes at each wave: the 16-byte-lane route
     # the engine's tiles take, and the general route on the same operands
     ft_routes = (("fused_transform_vec", "vec", kft.fused_transform_vec),
@@ -476,6 +495,21 @@ def _kernel_checks(torch, operands, waves):
     rows[0]["turns_ms"] = turns
     print(f"[kernel] xor_decrypt and torch.bitwise_xor in turns: {json.dumps(turns)}",
           flush=True)
+    # dense_unpack's and ragged_gather's two routes in turns (new, general,
+    # general, new), three times
+    for new_name, general_name in (("dense_unpack_warp", "dense_unpack"),
+                                   ("ragged_gather_vec", "ragged_gather")):
+        new_c, general_c = (next(c for c in cases if c["name"] == n)
+                            for n in (new_name, general_name))
+        turns = {new_name: [], general_name: []}
+        for _ in range(3):
+            turns[new_name].append(_queued_ms(torch, new_c["kernel"]))
+            turns[general_name].append(_queued_ms(torch, general_c["kernel"]))
+            turns[general_name].append(_queued_ms(torch, general_c["kernel"]))
+            turns[new_name].append(_queued_ms(torch, new_c["kernel"]))
+        next(r for r in rows if r["name"] == new_name)["turns_ms"] = turns
+        print(f"[kernel] {new_name} and {general_name} {new_c['shape']} in turns "
+              f"{json.dumps(turns)}", flush=True)
     # fused_transform's two routes at each wave in turns (vec, scalar,
     # scalar, vec), three times
     for w in range(len(waves)):
@@ -652,7 +686,23 @@ def _adversarial_checks(torch) -> None:
             raise RuntimeError(f"xor_decrypt: ({n}, 128) differs")
     print("[adversarial] xor_decrypt (1, 128) and (40000, 128): bit-exact", flush=True)
 
-    for rows, feats in ((1, 3), (40_000, 7)):
+    def unpack_check(bm, v):
+        """Through the route it takes and both routes by name (the warp
+        route where it takes the bitmap); returns the route."""
+        want = ref.dense_unpack(bm, v)
+        fns = [kdecode.dense_unpack, kdecode.dense_unpack_block]
+        taken = kdecode.dense_unpack_route(bm)
+        if taken == "warp":
+            fns.append(kdecode.dense_unpack_warp)
+        for fn in fns:
+            if not torch.equal(fn(bm, v), want):
+                raise RuntimeError(f"{fn.__name__}: bitmap {tuple(bm.shape)} values "
+                                   f"{tuple(v.shape)} differs")
+        return taken
+
+    special = np.array([0x7FC00001, 0x7F800001, 0xFFC00000, 0x7F800000, 0x80000000, 0, 1,
+                        0x807FFFFF], np.uint32).view(np.int32)    # NaN payloads, subnormals
+    for rows, feats in [(1, 3), (40_000, 7)] + [(32 * w - (w % 3), 7) for w in range(1, 34)]:
         nw = -(-rows // 32)
         bitmap = np.zeros((feats, nw), np.int32)
         values = np.zeros((feats, rows), np.int32)
@@ -664,12 +714,29 @@ def _adversarial_checks(torch) -> None:
             bitmap[f] = buf.view("<i4")
             n = int(present.sum()) // (2 if f % 2 else 1)    # some too few values
             values[f, :n] = lanes(rng, max(n, 1), True)[:n]
+            values[f, : min(n, len(special))] = special[: min(n, len(special))]
         bm, vals = cuda(bitmap), cuda(values)
-        for v in (vals, vals[:, :3].contiguous()):          # ranks clip to C-1
-            if not torch.equal(kdecode.dense_unpack(bm, v), ref.dense_unpack(bm, v)):
-                raise RuntimeError(f"dense_unpack: {rows} rows x {feats} differs")
-    print("[adversarial] dense_unpack up to 1250 words x 7 features: bit-exact",
-          flush=True)
+        wide = cuda(np.concatenate(                               # C above 32 W
+            [values, rng.integers(*i32, (feats, 37), dtype=np.int64).astype(np.int32)], 1))
+        # C of 1, C below the rows present (ranks clip to C-1), C of 32 W, C above
+        for v in (vals, vals[:, :1].contiguous(), vals[:, :3].contiguous(), wide):
+            want_route = "warp" if nw <= 32 else "block"
+            if unpack_check(bm, v) != want_route:
+                raise RuntimeError(f"dense_unpack: {nw} words took the wrong route")
+    print("[adversarial] dense_unpack 1 to 33 and 1250 words x 7 features (all absent, all "
+          "present), C of 1, 3, 32 W and above, NaN payloads and subnormals: warp route "
+          "(up to 32 words) and block route bit-exact", flush=True)
+
+    def gather_check(src, idx, sh, label):
+        want = ref.ragged_gather(src, idx, sh)
+        fns = [kdecode.ragged_gather, kdecode.ragged_gather_scalar]
+        taken = kdecode.ragged_gather_route(idx, sh)
+        if taken == "vec":
+            fns.append(kdecode.ragged_gather_vec)
+        for fn in fns:
+            if not torch.equal(fn(src, idx, sh), want):
+                raise RuntimeError(f"{fn.__name__}: {label} ({tuple(idx.shape)}) differs")
+        return taken
 
     for m in (1, 20_000):
         n = max(m, 2) * 128
@@ -677,11 +744,38 @@ def _adversarial_checks(torch) -> None:
         idx = rng.integers(0, n - 1, (m, 128)).astype(np.int32)
         sh = rng.choice(np.array([0, 8, 16, 24], np.int32), (m, 128))
         idx.flat[0], sh.flat[0] = n - 2, 24                 # the last word pair
-        idx, sh = cuda(idx), cuda(sh)
-        if not torch.equal(kdecode.ragged_gather(src, idx, sh),
-                           ref.ragged_gather(src, idx, sh)):
-            raise RuntimeError(f"ragged_gather: ({m}, 128) differs")
-    print("[adversarial] ragged_gather every shift: bit-exact", flush=True)
+        if gather_check(src, cuda(idx), cuda(sh), "random") != "vec":
+            raise RuntimeError("ragged_gather: fresh (M, 128) operands took the scalar route")
+        # runs of consecutive words at one shift a run, runs of random even
+        # lengths, pairs of non-consecutive indices, a pair that straddles
+        # two runs, a pair of mixed shifts, a run to the last word pair
+        flat_i, flat_s = idx.reshape(-1), sh.reshape(-1)
+        at = 0
+        while at < flat_i.size:
+            length = min(2 * int(rng.integers(1, 60)), flat_i.size - at)
+            flat_i[at: at + length] = int(rng.integers(0, n - length - 1)) + np.arange(length)
+            flat_s[at: at + length] = rng.choice([0, 8, 16, 24])
+            at += length
+        flat_i[0:4] = [5, 9, 6, 7]
+        flat_i[4:8], flat_s[4:8] = [20, 21, 22, 23], [8, 8, 16, 8]
+        flat_i[8:12], flat_s[8:12] = np.arange(n - 5, n - 1), 24
+        flat_i[13:15] = [flat_i[13], flat_i[13] + 40]
+        flat_i[-1], flat_s[-1] = n - 2, 24
+        if gather_check(src, cuda(idx), cuda(sh), "runs") != "vec":
+            raise RuntimeError("ragged_gather: fresh (M, 128) operands took the scalar route")
+        for shift in (0, 8, 16, 24):                        # every shift, all runs
+            run = cuda((np.arange(m * 128) % (n - 1)).astype(np.int32).reshape(m, 128))
+            gather_check(src, run, torch.full_like(run, shift), f"runs at shift {shift}")
+    # views 4 bytes into one buffer take the scalar route
+    buf_i = cuda(rng.integers(0, 255, 8 * 128 + 1).astype(np.int32))
+    buf_s = cuda(rng.choice(np.array([0, 8, 16, 24], np.int32), 8 * 128 + 1))
+    src = cuda(rng.integers(*i32, (2, 128), dtype=np.int64).astype(np.int32))
+    if gather_check(src, buf_i[1:].view(8, 128), buf_s[1:].view(8, 128), "view") != "scalar":
+        raise RuntimeError("ragged_gather: a view 4 bytes in took the vec route")
+    print("[adversarial] ragged_gather every shift, random indices, runs of even lengths, "
+          "non-consecutive, straddling and mixed-shift pairs, the last word pair, M of 1 and "
+          "20000: vec and scalar routes bit-exact; a view 4 bytes in: scalar route bit-exact",
+          flush=True)
 
 
 def _serve(torch, engine: str, profile: bool = False):
@@ -2390,13 +2484,20 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = build.LAUNCHES.snapshot()
     print(f"[serve] main path launches {launches}", flush=True)
-    for name in ("xor_decrypt", "dense_unpack", "ragged_gather", "fused_transform_vec"):
+    for name in ("xor_decrypt", "dense_unpack_warp", "ragged_gather_vec",
+                 "fused_transform_vec"):
         if launches.get(name, 0) <= 0:
             raise RuntimeError(f"the main path never launched {name}")
-    if launches.get("fused_transform", 0) != 0:
-        raise RuntimeError(f"the main path launched fused_transform's general route "
-                           f"{launches['fused_transform']} times: every engine tile must "
-                           "take the vec route")
+    for general in ("fused_transform", "dense_unpack", "ragged_gather"):
+        if launches.get(general, 0) != 0:
+            raise RuntimeError(f"the main path launched {general}'s general route "
+                               f"{launches[general]} times: every engine operand must "
+                               "take the new route")
+    n_stripes = sum(len(p.footer.stripes) for p in session.table.partitions.values())
+    for name in ("dense_unpack_warp", "ragged_gather_vec"):
+        if launches[name] != n_stripes:
+            raise RuntimeError(f"the main path launched {name} {launches[name]} times, "
+                               f"expected one a stripe ({n_stripes})")
     n_rows = sum(p.num_rows for p in session.table.partitions.values())
     if sum(len(b["label"]) for b in batches) != n_rows or len(batches) != n_rows // BATCH:
         raise RuntimeError(f"served {len(batches)} batches, expected {n_rows // BATCH}")

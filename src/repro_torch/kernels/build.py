@@ -44,7 +44,9 @@ _F32 = ctypes.c_float
 SIGNATURES = {
     "xor_decrypt_launch": (_P, _P, _I64, _P),
     "dense_unpack_launch": (_P, _P, _P, _I32, _I32, _I32, _P),
+    "dense_unpack_warp_launch": (_P, _P, _P, _I32, _I32, _I32, _P),
     "ragged_gather_launch": (_P, _P, _P, _P, _I64, _I64, _P),
+    "ragged_gather_vec_launch": (_P, _P, _P, _P, _I64, _I64, _P),
     "fused_transform_launch": (
         _P, _P, _P, _P, _P, _P, _I32, _I64, _I64, _I64, _I32, _P,
     ),

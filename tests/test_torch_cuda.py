@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import bucketize as kbucketize  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import decode as kdecode  # noqa: E402
 from repro_torch.kernels import embedding_bag as kbag  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import fused_transform as kft  # noqa: E402
@@ -476,3 +477,168 @@ def test_fused_transform_and_embedding_bag_route_counts(cuda):
     with pytest.raises(ValueError, match="embedding_bag_warp: takes E a multiple of 4"):
         kbag.embedding_bag_warp(narrow, ids, mask)
 
+
+
+# -- dense_unpack and ragged_gather, both routes each ----------------------------------
+
+def _moved(fn, names):
+    """The launch counts that ``fn`` moved, by name."""
+    before = build.LAUNCHES.snapshot()
+    fn()
+    torch.cuda.synchronize()
+    after = build.LAUNCHES.snapshot()
+    return {n: after.get(n, 0) - before.get(n, 0) for n in names
+            if after.get(n, 0) != before.get(n, 0)}
+
+
+def _unpack_operands(cuda, rng, w, c, densities=(0.0, 1.0, 0.5, 0.9, 0.05, 0.3)):
+    """Features of ``w`` packbits words, one a density (0.0: all absent, 1.0:
+    all present); values of C columns, full-range ints with NaN payloads,
+    infinities, signed zeros and subnormals at the front."""
+    bitmap = np.zeros((len(densities), w), np.int32)
+    values = rng.integers(-(2 ** 31), 2 ** 31, (len(densities), c),
+                          dtype=np.int64).astype(np.int32)
+    special = np.array([0x7FC00001, 0x7F800001, 0xFFC00000, 0x7F800000, 0x80000000, 0,
+                        1, 0x807FFFFF], np.uint32).view(np.int32)
+    k = min(c, len(special))
+    values[:, :k] = special[:k]
+    for f, dens in enumerate(densities):
+        present = rng.random(32 * w) < dens
+        bitmap[f] = np.packbits(present.astype(np.uint8)).view("<i4")
+    return torch.from_numpy(bitmap).to(cuda), torch.from_numpy(values).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", list(range(1, 33)) + [33, 64, 1250])
+def test_dense_unpack_routes_match_plain(cuda, w):
+    """W of 1 to 32 takes the warp route, wider bitmaps the block route;
+    both give the plain version's bits with C of 1, C fewer than the rows
+    present (ranks clipped to C - 1), C of 32 W and C above it (the main
+    path's 478 too), on all-absent and all-present features, NaN-payload
+    and subnormal value bits."""
+    rng = np.random.default_rng(w)
+    warp = kdecode.dense_unpack_route(torch.empty((1, w))) == "warp"
+    assert warp == (w <= 32)
+    fns = [kdecode.dense_unpack, kdecode.dense_unpack_block]
+    if warp:
+        fns.append(kdecode.dense_unpack_warp)
+    for c in sorted({1, 3, 16 * w, 32 * w, 32 * w + 5, 478}):
+        bm, vals = _unpack_operands(cuda, rng, w, c)
+        want = ref.dense_unpack(bm, vals)
+        for fn in fns:
+            got = fn(bm, vals)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (fn.__name__, c)
+
+
+def _gather_operands(cuda, rng, m, n_src_rows=40):
+    """idx and shift as the engine lays them out: runs of consecutive source
+    words, one shift a run, runs of random even lengths; then pairs of
+    non-consecutive indices, a pair that straddles two runs, a pair that
+    mixes shifts and the last word pair (idx n - 2, shift 24)."""
+    n = n_src_rows * 128
+    src = rng.integers(-(2 ** 31), 2 ** 31, (n_src_rows, 128), dtype=np.int64).astype(np.int32)
+    idx = np.zeros(m * 128, np.int64)
+    shift = np.zeros(m * 128, np.int32)
+    at = 0
+    while at < m * 128:
+        length = min(2 * int(rng.integers(1, 40)), m * 128 - at)
+        idx[at: at + length] = int(rng.integers(0, n - length - 1)) + np.arange(length)
+        shift[at: at + length] = rng.choice([0, 8, 16, 24])
+        at += length
+    idx[0:4] = [5, 9, 6, 7]
+    shift[4:8] = [8, 8, 16, 8]
+    idx[4:8] = [20, 21, 22, 23]
+    idx[8:12] = np.arange(n - 5, n - 1)
+    shift[8:12] = 24
+    idx[13:15] = [idx[13], idx[13] + 40]          # straddles two runs
+    idx[-1], shift[-1] = n - 2, 24
+    return (torch.from_numpy(src).to(cuda),
+            torch.from_numpy(idx.astype(np.int32).reshape(m, 128)).to(cuda),
+            torch.from_numpy(shift.reshape(m, 128)).to(cuda))
+
+
+def _gather_all_routes(src, idx, shift):
+    want = ref.ragged_gather(src, idx, shift)
+    for fn in (kdecode.ragged_gather, kdecode.ragged_gather_vec, kdecode.ragged_gather_scalar):
+        got = fn(src, idx, shift)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 7, 1951])
+def test_ragged_gather_routes_match_plain(cuda, m):
+    """M of 1 to the main path's 1951 rows of engine-like runs, a pair that
+    straddles runs, non-consecutive indices, a pair that mixes shifts and
+    the last word pair: the vec route (which takes every one of these
+    fresh operands) and the scalar route, bit-exact."""
+    src, idx, shift = _gather_operands(cuda, np.random.default_rng(m), m)
+    assert kdecode.ragged_gather_route(idx, shift) == "vec"
+    _gather_all_routes(src, idx, shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sh", [0, 8, 16, 24])
+def test_ragged_gather_every_shift(cuda, sh):
+    """One shift throughout: all runs, then random indices (no run)."""
+    rng = np.random.default_rng(sh + 1)
+    src = torch.from_numpy(rng.integers(-(2 ** 31), 2 ** 31, (9, 128),
+                                        dtype=np.int64).astype(np.int32)).to(cuda)
+    runs = (torch.arange(8 * 128, dtype=torch.int32, device=cuda) + 3).view(8, 128)
+    scattered = torch.from_numpy(rng.integers(0, 9 * 128 - 1, (8, 128)).astype(np.int32)).to(cuda)
+    for idx in (runs, scattered):
+        _gather_all_routes(src, idx, torch.full_like(idx, sh))
+
+
+@pytest.mark.cuda
+def test_ragged_gather_reads_zero_outside_source(cuda):
+    """Indices below 0 or past the end read 0 on both routes: the same
+    outputs as the plain version over the source padded with zero rows
+    (one before, two after)."""
+    rng = np.random.default_rng(5)
+    src = torch.from_numpy(rng.integers(-(2 ** 31), 2 ** 31, (3, 128),
+                                        dtype=np.int64).astype(np.int32)).to(cuda)
+    n = src.numel()
+    idx = torch.arange(-128, n + 128, dtype=torch.int32, device=cuda).view(-1, 128)
+    pad = torch.zeros((1, 128), dtype=torch.int32, device=cuda)
+    padded = torch.cat([pad, src, pad, pad])
+    for sh in (0, 8, 16, 24):
+        shift = torch.full_like(idx, sh)
+        shift.view(-1)[1::7] = (sh + 8) % 32                 # pairs that mix shifts
+        want = ref.ragged_gather(padded, idx + 128, shift)
+        for fn in (kdecode.ragged_gather_vec, kdecode.ragged_gather_scalar):
+            got = fn(src, idx, shift)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (fn.__name__, sh)
+
+
+@pytest.mark.cuda
+def test_decode_route_counts(cuda):
+    """Each call counts under its route's name only: 16 bitmap words and
+    fresh (M, 128) operands launch the new routes, 40 words and a view 4
+    bytes in the general ones (bit-exact too); the new routes' wrappers
+    refuse what they do not take."""
+    rng = np.random.default_rng(11)
+    names = ("dense_unpack", "dense_unpack_warp", "ragged_gather", "ragged_gather_vec")
+    bm, vals = _unpack_operands(cuda, rng, 16, 478)
+    wide, wide_vals = _unpack_operands(cuda, rng, 40, 478)
+    assert _moved(lambda: kdecode.dense_unpack(bm, vals), names) == {"dense_unpack_warp": 1}
+    assert _moved(lambda: kdecode.dense_unpack(wide, wide_vals), names) == {"dense_unpack": 1}
+    assert _moved(lambda: kdecode.dense_unpack_block(bm, vals), names) == {"dense_unpack": 1}
+    with pytest.raises(ValueError, match="dense_unpack_warp: takes 1 to 32"):
+        kdecode.dense_unpack_warp(wide, wide_vals)
+    src, idx, shift = _gather_operands(cuda, rng, 8)
+    assert _moved(lambda: kdecode.ragged_gather(src, idx, shift), names) == \
+        {"ragged_gather_vec": 1}
+    flat_i = torch.cat([idx.view(-1), idx.view(-1)[:1]])
+    flat_s = torch.cat([shift.view(-1), shift.view(-1)[:1]])
+    view_i, view_s = flat_i[1:].view(8, 128), flat_s[1:].view(8, 128)    # 4 bytes in
+    assert kdecode.ragged_gather_route(view_i, view_s) == "scalar"
+    want = ref.ragged_gather(src, view_i, view_s)
+    got = {}
+    assert _moved(lambda: got.update(out=kdecode.ragged_gather(src, view_i, view_s)),
+                  names) == {"ragged_gather": 1}
+    assert torch.equal(got["out"], want)
+    with pytest.raises(ValueError, match="ragged_gather_vec: takes 8-byte aligned"):
+        kdecode.ragged_gather_vec(src, view_i, view_s)

@@ -18,14 +18,19 @@ and 16-byte aligned bases to its 16-byte-lane route, and
 ``embedding_bag`` sends E a multiple of 4 up to 512 with a 16-byte
 aligned table to its warp route; both rules are held here, with plain
 PyTorch mirrors of the vec route's BUCKETIZE_F search and vote and of the
-warp route's column and slot order.  The kernels themselves run in
-``tests/test_torch_cuda.py``.
+warp route's column and slot order.  ``dense_unpack`` sends bitmaps of 1
+to 32 words a feature to its warp route and ``ragged_gather`` sends
+8-byte aligned idx and shift of an even count to its vec route; both rules are held here, with plain PyTorch mirrors of the warp
+route's popcount prefix and ranks and of the vec route's runs and
+pairs, against the plain versions and the Pallas kernels in interpret
+mode.  The kernels themselves run in ``tests/test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import decode as kdecode  # noqa: E402
 from repro_torch.kernels import embedding_bag as kbag  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import fused_transform as kft  # noqa: E402
@@ -548,3 +553,249 @@ def test_warp_bag_order_equals_the_plain_version(e, l):
         want = ref.embedding_bag(t, i, m, mode=mode)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), mode
         assert torch.isnan(got[2, :2]).all()
+
+
+# -- dense_unpack's and ragged_gather's routes -----------------------------------------
+
+def test_dense_unpack_route_takes_up_to_32_words():
+    """The main path's (504, 16) bitmap with its (504, 478) values, and any
+    bitmap of 1 to 32 words a feature whatever C, take the warp route;
+    0 or more than 32 words the block route."""
+    assert kdecode.dense_unpack_route(torch.zeros((504, 16), dtype=torch.int32)) == "warp"
+    for w in (1, 2, 7, 16, 31, 32):
+        assert kdecode.dense_unpack_route(torch.zeros((3, w), dtype=torch.int32)) == "warp", w
+    for w in (0, 33, 64, 1250):
+        assert kdecode.dense_unpack_route(torch.zeros((3, w), dtype=torch.int32)) == "block", w
+
+
+def test_ragged_gather_route_reads_layout_and_bases():
+    """Fresh (M, 128) operands (the engine's, M = 1951 at the main path) take
+    the vec route; views of one buffer 4 or 12 bytes in, a non-contiguous
+    view and an odd count take the scalar route (8 and 16 bytes in, the
+    vec route); either operand alone off 8 bytes is enough."""
+    fresh = lambda m, n=128: torch.zeros((m, n), dtype=torch.int32)   # noqa: E731
+    assert kdecode.ragged_gather_route(fresh(1951), fresh(1951)) == "vec"
+    assert kdecode.ragged_gather_route(fresh(1), fresh(1)) == "vec"
+    assert kdecode.ragged_gather_route(fresh(3, 2), fresh(3, 2)) == "vec"
+    flat = torch.zeros(8 * 128 + 8, dtype=torch.int32)
+    for off, want in ((0, "vec"), (1, "scalar"), (2, "vec"), (3, "scalar"), (4, "vec")):
+        view = flat[off: off + 8 * 128].view(8, 128)
+        assert kdecode.ragged_gather_route(view, view) == want, off
+        assert kdecode.ragged_gather_route(fresh(8), view) == want, off
+        assert kdecode.ragged_gather_route(view, fresh(8)) == want, off
+    assert kdecode.ragged_gather_route(fresh(8, 256)[:, ::2], fresh(8)) == "scalar"
+    assert kdecode.ragged_gather_route(fresh(3, 5), fresh(3, 5)) == "scalar"
+
+
+def test_decode_routes_decide_the_same_on_any_device():
+    for w in (1, 16, 32, 33):
+        routes = {kdecode.dense_unpack_route(torch.zeros((4, w), dtype=torch.int32, device=d))
+                  for d in ("cpu", "meta")}
+        assert len(routes) == 1, (w, routes)
+    for m, n in ((1951, 128), (1, 128), (3, 5)):
+        routes = {kdecode.ragged_gather_route(*(torch.zeros((m, n), dtype=torch.int32,
+                                                            device=d),) * 2)
+                  for d in ("cpu", "meta")}
+        assert len(routes) == 1, (m, n, routes)
+
+
+def test_decode_route_wrappers_refuse_cpu_tensors():
+    """No silent fallback: each route's wrapper takes CUDA tensors only, and
+    a CPU tensor through ``kernels.ops`` reaches the plain version and
+    launches nothing."""
+    from repro_torch.kernels import build, ops
+
+    bm = torch.full((3, 2), -1, dtype=torch.int32)
+    vals = torch.arange(3 * 70, dtype=torch.int32).view(3, 70)
+    for fn in (kdecode.dense_unpack, kdecode.dense_unpack_warp, kdecode.dense_unpack_block):
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            fn(bm, vals)
+    src = torch.arange(2 * 128, dtype=torch.int32).view(2, 128)
+    idx = torch.arange(128, dtype=torch.int32).view(1, 128)
+    for fn in (kdecode.ragged_gather, kdecode.ragged_gather_vec,
+               kdecode.ragged_gather_scalar):
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            fn(src, idx, idx)
+    before = build.LAUNCHES.snapshot()
+    assert torch.equal(ops.dense_unpack(bm, vals), ref.dense_unpack(bm, vals))
+    assert torch.equal(ops.ragged_gather(src, idx, idx & 24),
+                       ref.ragged_gather(src, idx, idx & 24))
+    assert build.LAUNCHES.snapshot() == before
+
+
+def _popc(x: torch.Tensor) -> torch.Tensor:
+    """__popc of uint32 values held in int64."""
+    return sum((x >> b) & 1 for b in range(32))
+
+
+def _unpack_warp_mirror(bitmap_words: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """The warp route's decomposition in plain PyTorch: lane l of each warp
+    holds word l in rows order (bit k is row 32 l + k), a scan of the
+    words' popcounts gives each word's exclusive prefix, and thread q
+    writes rows 4q..4q+3 of word q // 8 (taken from lane q // 8), each
+    present row's rank being the word's prefix plus the popcount of its
+    word's bits below it, read at min(rank, C - 1); NaN bits where a row is
+    absent.  (F, W) and (F, C) -> (F, 32 W)."""
+    feats, w = bitmap_words.shape
+    c = values.shape[1]
+    k = torch.arange(32, dtype=torch.int64)
+    packbits_bit = (k & ~7) + 7 - (k & 7)             # row k's bit in the LE word
+    word = bitmap_words.to(torch.int64) & 0xFFFFFFFF
+    rows = (((word[:, :, None] >> packbits_bit) & 1) << k).sum(-1)   # rows_order
+    pop = _popc(rows)
+    excl = torch.cumsum(pop, 1) - pop
+    q = torch.arange(8 * w, dtype=torch.int64)
+    rw, pre = rows[:, q // 8], excl[:, q // 8]        # the shuffles from lane q // 8
+    bit = ((q % 8) * 4)[:, None] + torch.arange(4)    # (8 W, 4) rows of the store
+    rw, pre = rw[:, :, None], pre[:, :, None]
+    present = ((rw >> bit) & 1) == 1
+    rank = pre + _popc(rw & ((1 << bit) - 1))
+    at = torch.where(present, rank.clamp(max=c - 1), 0).reshape(feats, -1)
+    got = torch.gather(values, 1, at)
+    return torch.where(present.reshape(feats, -1), got, torch.full_like(got, ref.NAN_BITS))
+
+
+def _unpack_operands(rng, w, c, densities):
+    """Features of ``w`` packbits words, one a density (0.0: all absent, 1.0:
+    all present), values of C columns whose present prefix holds NaN
+    payloads, infinities, signed zeros and subnormals."""
+    rows = 32 * w
+    bitmap = np.zeros((len(densities), w), np.int32)
+    values = rng.integers(-(2 ** 31), 2 ** 31, (len(densities), c),
+                          dtype=np.int64).astype(np.int32)
+    special = np.array([0x7FC00001, 0x7F800001, 0xFFC00000, 0x7F800000, 0x80000000, 0,
+                        1, 0x807FFFFF], np.uint32).view(np.int32)
+    values[:, : min(c, len(special))] = special[: min(c, len(special))]
+    for f, dens in enumerate(densities):
+        present = rng.random(rows) < dens
+        bitmap[f] = np.packbits(present.astype(np.uint8)).view("<i4")
+    return torch.from_numpy(bitmap), torch.from_numpy(values)
+
+
+@pytest.mark.parametrize("w,c", [
+    (16, 478),          # the main path's widths
+    (1, 1), (1, 32), (3, 40), (7, 5), (32, 1024), (32, 600), (2, 3000),
+])
+def test_unpack_warp_decomposition_matches_plain_and_pallas(w, c):
+    """The warp route's mirror equals ``ref.dense_unpack`` and the Pallas
+    kernel in interpret mode, with all-absent and all-present features, C
+    of 1 and C fewer than the rows present (ranks clipped to C - 1), C of
+    32 W and C above it, NaN-payload and subnormal value bits."""
+    from repro.kernels import ops as jops
+
+    rng = np.random.default_rng(w * 1000 + c)
+    bm, vals = _unpack_operands(rng, w, c, (0.0, 1.0, 0.5, 0.9, 0.05))
+    want = ref.dense_unpack(bm, vals)
+    assert torch.equal(_unpack_warp_mirror(bm, vals), want)
+    jwant = np.asarray(jops.dense_unpack(bm.numpy(), vals.numpy(), use_pallas=True))
+    np.testing.assert_array_equal(want.numpy(), jwant)
+
+
+def _funnel(lo: torch.Tensor, hi: torch.Tensor, sh: torch.Tensor) -> torch.Tensor:
+    """__funnelshift_r(lo, hi, sh) on uint32 values held in int64."""
+    sh = sh & 31
+    return (lo >> sh) | torch.where(sh == 0, 0, (hi << (32 - sh)) & 0xFFFFFFFF)
+
+
+def _gather_vec_mirror(src: torch.Tensor, idx: torch.Tensor, shift: torch.Tensor):
+    """The vec route's decomposition in plain PyTorch: outputs in pairs; a
+    pair whose indices are consecutive and whose shifts are equal is a run,
+    spliced from the 3 source words it starts at, any other pair from two
+    general pairs of words; words outside the source read as 0.  Returns
+    the output and which pairs were runs."""
+    flat = src.reshape(-1).to(torch.int64) & 0xFFFFFFFF
+    n = flat.numel()
+
+    def word(a):
+        return torch.where((a >= 0) & (a < n), flat[a.clamp(0, n - 1)], 0)
+
+    a = idx.reshape(-1, 2).to(torch.int64)
+    s = shift.reshape(-1, 2).to(torch.int64)
+    run = (a[:, 1] == a[:, 0] + 1) & (s[:, 1] == s[:, 0])
+    three = word(a[:, :1] + torch.arange(3))
+    spliced = _funnel(three[:, :2], three[:, 1:], s[:, :1])
+    pairs = _funnel(word(a), word(a + 1), s)
+    out = torch.where(run[:, None], spliced, pairs)
+    return ((out ^ 0x80000000) - 0x80000000).to(torch.int32).reshape(idx.shape), run
+
+
+def _engine_gather_operands(rng, n_regions):
+    """src, idx and shift as the port's decode engine packs them
+    (``TorchDecodeEngine._gather_launch``): payloads of random bytes and
+    array regions at random byte offsets and lengths, one run of even word
+    slots a region."""
+    from repro_torch.core.decode import TorchDecodeEngine
+
+    class Capture(TorchDecodeEngine):
+        def __init__(self):
+            super().__init__("cpu")
+            self.operands = []
+
+        def _to_device(self, a):
+            t = super()._to_device(a)
+            self.operands.append(t.clone())
+            return t
+
+    pool = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+            for n in rng.integers(200, 3000, 4)]
+    requests = []
+    for _ in range(n_regions):
+        pi = int(rng.integers(0, len(pool)))
+        off = int(rng.integers(0, len(pool[pi]) - 64))
+        nb = 4 * int(rng.integers(1, (len(pool[pi]) - off) // 4 + 1))
+        requests.append((pi, np.dtype(np.int32), off, nb))
+    engine = Capture()
+    engine._gather_launch(pool, requests)
+    return engine.operands
+
+
+def test_gather_vec_decomposition_matches_plain_and_pallas():
+    """On the engine's own packing (regions at every byte misalignment, each
+    one run of even length, so every pair but the padding is a run), then with a pair of
+    non-consecutive indices, a pair that straddles two runs, a pair that
+    mixes shifts and the last word pair (idx n - 2, shift 24), the vec
+    route's mirror equals ``ref.ragged_gather`` and the Pallas kernel in
+    interpret mode."""
+    from repro.kernels import ops as jops
+
+    rng = np.random.default_rng(18)
+    src, idx, shift = _engine_gather_operands(rng, 40)
+    assert set(torch.unique(shift).tolist()) == {0, 8, 16, 24}
+    _, runs = _gather_vec_mirror(src, idx, shift)
+    tail = (idx.view(-1, 2) == 0).all(1)          # the padding after the last region
+    assert bool((runs | tail).all()) and int(tail.sum()) < 64
+    n = src.numel()
+    flat_i, flat_s = idx.view(-1), shift.view(-1)
+    flat_i[0:2] = torch.tensor([9, 5], dtype=torch.int32)              # not consecutive
+    flat_i[2:6] = torch.tensor([30, 31, 70, 71], dtype=torch.int32)
+    flat_i[7], flat_s[6:8] = 72, torch.tensor([8, 16], dtype=torch.int32)
+    flat_i[6] = 71                                                     # a mixed shift
+    flat_i[9], flat_s[8:10] = 44, 0
+    flat_i[8] = 3                                                      # straddles two runs
+    flat_i[10:12], flat_s[10:12] = torch.tensor([n - 3, n - 2], dtype=torch.int32), 24
+    flat_i[-1], flat_s[-1] = n - 2, 24                                 # the last word pair
+    got, runs = _gather_vec_mirror(src, idx, shift)
+    assert runs[:6].tolist() == [False, True, True, False, False, True]
+    want = ref.ragged_gather(src, idx, shift)
+    assert torch.equal(got, want)
+    jwant = np.asarray(jops.ragged_gather(src.numpy(), idx.numpy(), shift.numpy(),
+                                          use_pallas=True))
+    np.testing.assert_array_equal(want.numpy(), jwant)
+
+
+@pytest.mark.parametrize("sh", [0, 8, 16, 24])
+def test_gather_vec_runs_match_plain_at_every_shift(sh):
+    """Every pair a run at one shift, with the last pairs' words past the
+    end of the source read as 0 (the plain version is given the source
+    padded with zeros)."""
+    rng = np.random.default_rng(sh)
+    src = torch.from_numpy(rng.integers(-(2 ** 31), 2 ** 31, (3, 128),
+                                        dtype=np.int64).astype(np.int32))
+    n = src.numel()
+    idx = (torch.arange(2 * 128, dtype=torch.int32) + 37).view(2, 128)
+    idx.view(-1)[-4:] = torch.arange(n - 2, n + 2, dtype=torch.int32)   # past the end
+    shift = torch.full_like(idx, sh)
+    got, runs = _gather_vec_mirror(src, idx, shift)
+    assert bool(runs.all())
+    padded = torch.cat([src, torch.zeros((1, 128), dtype=torch.int32)])
+    assert torch.equal(got, ref.ragged_gather(padded, idx, shift))
