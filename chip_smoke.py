@@ -7,7 +7,7 @@
 2. Builds the CUDA kernels from ``src/repro_torch/csrc`` (timed) and
    prints ``-Xptxas -v``'s registers and spills of both routes of
    ``fused_transform``, ``embedding_bag``, ``dense_unpack`` and
-   ``ragged_gather``.
+   ``ragged_gather``, and of ``sigrid_hash``.
 3. Captures the data path's kernel operands from one stripe of the
    full-width ``dlrm-paper`` data path, holds each kernel bit-exact
    (``torch.equal``) against its plain PyTorch version on the card, and
@@ -32,8 +32,9 @@
    ``fused_transform`` (at each wave) in turns.  Then the
    standalone ``sigrid_hash`` and ``bucketize`` (no path launches them)
    bit-exact at one batch's tiles and on adversarial inputs, and timed
-   (``bucketize`` also with tied, 5,000 sorted and 5,000 unsorted
-   borders).
+   (``sigrid_hash`` also in turns beside ``torch.bitwise_xor``, which
+   moves the same bytes, and at an 8-batch tile; ``bucketize`` also with
+   tied, 5,000 sorted and 5,000 unsorted borders).
 4. The serving path: serves every batch of the full-width ``dlrm-paper``
    DPP session through ``dlrm_dpp_batches(CONFIG, 512, device="cuda")``
    with the launch counts set to 0 just before, checks that every data
@@ -131,6 +132,7 @@ import io
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -175,7 +177,8 @@ SSD_TOL = {"float32": (5e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}
 PTXAS_KERNELS = ("fused_transform_kernel", "fused_transform_vec_kernel",
                  "embedding_bag_kernel", "embedding_bag_warp_kernel",
                  "dense_unpack_kernel", "dense_unpack_warp_kernel",
-                 "ragged_gather_kernel", "ragged_gather_vec_kernel")
+                 "ragged_gather_kernel", "ragged_gather_vec_kernel",
+                 "sigrid_hash_kernel")
 
 
 def _setup():
@@ -1781,7 +1784,11 @@ def _standalone_checks(torch, operands):
     bit-exact against its plain version; times of kernel, plain version
     and, for ``bucketize``, ``torch.bucketize`` (which agrees where v is
     not NaN: a search puts NaN past the last border, the count gives 0).
-    No path of the port launches either kernel (launches 0)."""
+    ``sigrid_hash`` is timed again in turns beside ``torch.bitwise_xor(ids,
+    salt)``, which moves the same bytes with one op (``same_bytes_ms``: a
+    floor, not a library time for the function), at this tile and at an
+    8-batch one.  No path of the port launches either kernel (launches
+    0)."""
     import numpy as np
 
     from repro_torch.configs.dlrm_paper import CONFIG
@@ -1847,7 +1854,35 @@ def _standalone_checks(torch, operands):
               f"bound_ms={row['bound_ms']:.6f} call_ms={row['call_ms']:.6f} "
               f"plain_call_ms={row['plain_call_ms']:.6f} "
               f"library_call_ms={row['library_call_ms']}", flush=True)
+    turns = _sigrid_turns(torch, ids, salt, max_value)
+    rows[0].update(turns_ms=turns, same_bytes_ms=statistics.median(turns["same_bytes"]))
+    print(f"[kernel] sigrid_hash {rows[0]['shape']}: the kernel and the same-bytes "
+          f"torch.bitwise_xor in turns {json.dumps(turns)}", flush=True)
+    ids8 = torch.from_numpy(rng.integers(-(2 ** 31), 2 ** 31, (
+        8 * BATCH, ids.shape[1]), dtype=np.int64).astype(np.int32)).cuda()
+    if not torch.equal(ksigrid.sigrid_hash(ids8, salt, max_value),
+                       ref.sigrid_hash(ids8, salt, max_value)):
+        raise RuntimeError(f"sigrid_hash at {tuple(ids8.shape)} differs")
+    rows[0]["batch8"] = dict(shape=list(ids8.shape),
+                             bound_ms=8 * ids8.numel() / HBM_BYTES_PER_S * 1e3,
+                             turns_ms=_sigrid_turns(torch, ids8, salt, max_value))
+    print(f"[kernel] sigrid_hash 8-batch tile, bit-exact, in turns: "
+          f"{json.dumps(rows[0]['batch8'])}", flush=True)
     return rows
+
+
+def _sigrid_turns(torch, ids, salt, max_value):
+    """``sigrid_hash`` and ``torch.bitwise_xor(ids, salt)`` (the same bytes
+    with one op) in turns, three times each way round."""
+    from repro_torch.kernels import sigrid_hash as ksigrid
+
+    fns = {"sigrid_hash": lambda: ksigrid.sigrid_hash(ids, salt, max_value),
+           "same_bytes": lambda: torch.bitwise_xor(ids, salt)}
+    turns = {name: [] for name in fns}
+    for t in range(6):
+        for name in (list(fns) if t % 2 == 0 else list(fns)[::-1]):
+            turns[name].append(_queued_ms(torch, fns[name]))
+    return turns
 
 
 def _bucketize_more_borders(torch, dense):
@@ -1890,10 +1925,11 @@ def _bucketize_more_borders(torch, dense):
 def _standalone_adversarial_checks(torch) -> None:
     """``sigrid_hash`` and ``bucketize`` bit-exact on inputs the data path
     never makes: INT_MIN, -1 and 0 ids, salts 0 and 2^32-1, max_value 1,
-    2^31-1, 2^31+5 and 2^32-1 (remainders above INT_MAX wrap negative),
-    odd and unaligned tiles; NaN, infinite, subnormal and signed-zero values
-    tied with borders, NaN and unsorted borders, sorted borders with ties,
-    0, 1, 1000 and 5000 borders (sorted and unsorted)."""
+    2, 3, 2^16+1, 2,000,000, 2^31-1, 2^31, 2^31+5, 2^32-2 and 2^32-1
+    (remainders above INT_MAX wrap negative), odd and unaligned tiles;
+    NaN, infinite, subnormal and signed-zero values tied with borders, NaN
+    and unsorted borders, sorted borders with ties, 0, 1, 1000 and 5000
+    borders (sorted and unsorted)."""
     import numpy as np
 
     from repro_torch.kernels import bucketize as kbucketize
@@ -1907,7 +1943,8 @@ def _standalone_adversarial_checks(torch) -> None:
     negative = False
     for t in (ids, ids[1:], ids[:70_000].view(350, 200), ids[:1]):
         for salt in (0, 2 ** 32 - 1):
-            for mv in (1, 2 ** 31 - 1, 2 ** 31 + 5, 2 ** 32 - 1):
+            for mv in (1, 2, 3, 2 ** 16 + 1, 2_000_000, 2 ** 31 - 1, 2 ** 31, 2 ** 31 + 5,
+                       2 ** 32 - 2, 2 ** 32 - 1):
                 got = ksigrid.sigrid_hash(t, salt, mv)
                 if not torch.equal(got, ref.sigrid_hash(t, salt, mv)):
                     raise RuntimeError(f"sigrid_hash {tuple(t.shape)} salt {salt} "
@@ -1915,8 +1952,9 @@ def _standalone_adversarial_checks(torch) -> None:
                 negative |= bool((got < 0).any())
     if not negative:
         raise RuntimeError("sigrid_hash: no remainder above INT_MAX wrapped negative")
-    print("[adversarial] sigrid_hash INT_MIN/-1/0, salts 0 and 2^32-1, max_value 1, "
-          "2^31-1, 2^31+5, 2^32-1, unaligned and odd tiles: bit-exact", flush=True)
+    print("[adversarial] sigrid_hash INT_MIN/-1/0, salts 0 and 2^32-1, max_value 1, 2, 3, "
+          "2^16+1, 2e6, 2^31-1, 2^31, 2^31+5, 2^32-2, 2^32-1, unaligned and odd tiles: "
+          "bit-exact", flush=True)
 
     v = torch.from_numpy((rng.standard_normal(50_001) * 3).astype(np.float32)).cuda()
     v[:9] = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1e-40,

@@ -38,6 +38,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _U32 = ctypes.c_uint32
+_U64 = ctypes.c_uint64
 _F32 = ctypes.c_float
 # C signatures: every pointer (and the stream) is a c_void_p, so ctypes
 # never cuts a 64-bit address to a 32-bit int
@@ -74,7 +75,7 @@ SIGNATURES = {
         _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
         _I64, _I64, _I64, _I64, _P,
     ),
-    "sigrid_hash_launch": (_P, _P, _I64, _U32, _U32, _P),
+    "sigrid_hash_launch": (_P, _P, _I64, _U32, _U64, _U32, _P),
     "bucketize_launch": (_P, _P, _P, _I64, _I32, _P),
 }
 

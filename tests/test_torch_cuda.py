@@ -295,6 +295,36 @@ def test_sigrid_hash_kernel_bit_exact(cuda):
     assert build.LAUNCHES.snapshot()["sigrid_hash"] == before + 15
 
 
+SIGRID_DIVISORS = (1, 2, 3, 7, 2 ** 16 + 1, 2_000_000, 2 ** 31 - 1, 2 ** 31, 2 ** 31 + 1,
+                   2 ** 31 + 5, 2 ** 32 - 2, 2 ** 32 - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 5, 4 * 1000 + 1, 4 * 1000 + 2, 4 * 1000 + 3, 70_001])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_sigrid_hash_divisors_and_tails_bit_exact(cuda, n, offset):
+    """The kernel against ``ref.sigrid_hash`` over every divisor of the CPU
+    mirror's test, INT_MIN/-1/0 ids and both extreme salts, on tiles whose
+    n % 4 tail the kernel takes element by element; at offset 1 the tile
+    is a view 4 bytes past a 16-byte boundary, which takes no vector at
+    all.  One launch a call."""
+    rng = np.random.default_rng(n)
+    base = torch.from_numpy(rng.integers(-(2 ** 31), 2 ** 31, n + 1, dtype=np.int64)
+                            .astype(np.int32)).to(cuda)
+    ids = base[offset:offset + n]
+    ids[-3:] = torch.tensor([-(2 ** 31), -1, 0], dtype=torch.int32)[-n:]
+    assert ids.data_ptr() % 16 == 4 * offset
+    before = build.LAUNCHES.snapshot().get("sigrid_hash", 0)
+    calls = 0
+    for salt in (0, 2 ** 32 - 1):
+        for mv in SIGRID_DIVISORS:
+            got = ksigrid.sigrid_hash(ids, salt, mv)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref.sigrid_hash(ids, salt, mv)), (salt, mv)
+            calls += 1
+    assert build.LAUNCHES.snapshot()["sigrid_hash"] == before + calls
+
+
 @pytest.mark.cuda
 def test_bucketize_kernel_bit_exact(cuda):
     """NaN, infinite, subnormal and signed-zero values; NaN, unsorted and
