@@ -44,7 +44,17 @@
    the batches have the expected shapes and
    finite dense values, and that they are byte-identical (as a multiset:
    workers race) to the port's numpy-engine session on the same data;
-   prints batches/s and rows/s.
+   prints batches/s and rows/s.  Then the multi-tenant service
+   (``_service_phase``) on the same table and spec: two tenants at once
+   through ``DPPService.run_all`` over a shared stripe cache (2 workers
+   each, torch engines on the card; each tenant's batches the numpy
+   engines', storage reads at most 0.6 of two sessions', hit rate at
+   least 0.5, per-tenant cache bytes adding up to the tiers', one
+   ``dense_unpack_warp`` and one ``ragged_gather_vec`` launch a stripe a
+   tenant and no general route); a second tenant served wholly from a
+   shared ``TensorCache`` with no launch at all; and the traced two-tenant
+   ``obs.smoke`` run on the card, its artifact passing
+   ``obs.report --check``.  Prints a ``{"service": ...}`` line.
 5. The trainer path: with the launch counts set to 0, serves the
    ``dlrm-paper`` session with its one cut (vocab 200,000 per table instead
    of 2,000,000: the store's host tier is numpy on the host) and trains 8
@@ -173,6 +183,11 @@ SSM_CAPTURE_LAYERS = (0, 63)
 # rounds m to bf16 before m.x, 2^-9 relative a term, and y to bf16).  The
 # final state is float32 in both types and held to the float32 bound.
 SSD_TOL = {"float32": (5e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}
+# the data-path kernels every DPP session launches on the card, and the
+# general routes of three of them, which no engine operand takes
+DATA_PATH_KERNELS = ("xor_decrypt", "dense_unpack_warp", "ragged_gather_vec",
+                     "fused_transform_vec")
+GENERAL_ROUTES = ("fused_transform", "dense_unpack", "ragged_gather")
 # kernels whose registers and spills the build prints on their own lines
 PTXAS_KERNELS = ("fused_transform_kernel", "fused_transform_vec_kernel",
                  "embedding_bag_kernel", "embedding_bag_warp_kernel",
@@ -828,6 +843,170 @@ def _serve(torch, engine: str, profile: bool = False):
              f"{_fmt(_idle_share(device_s, serve_s), '.4f')}" if profile else "")
           + f", stages {json.dumps(stages)}", flush=True)
     return out, session, serve_s, device_s
+
+
+def _service_phase(torch, ref_digests, single):
+    """The multi-tenant DPP service on the card (``DPPService``), at the
+    serving path's table and spec.
+
+    (a) Two tenants of that spec at once through ``run_all``: a shared
+    default ``StripeCache``, no tensor cache, 2 workers each, no
+    auto-scaling, torch engines on the card.  Each tenant's batches must
+    be the numpy engines' (``ref_digests``), the fleet must read at most
+    0.6 of two single sessions' storage bytes (``single``: the serving
+    path's session metrics) with a hit rate of at least 0.5, the
+    per-tenant cache bytes must add up to the tiers', and every stripe
+    must be decoded once per tenant by the warp and vec routes.
+    (b) A first tenant with a shared ``TensorCache``, run to its end, then
+    a second of the same spec on the same service with the launch counts
+    set to 0: every row from the cache, no kernel launched, the first
+    tenant's batches.  (c) ``obs.smoke.run_smoke`` on the card, its
+    artifact held to ``obs.report.check``.  Returns the phase's record."""
+    import tempfile
+
+    from repro_torch.configs.dlrm_paper import CONFIG
+    from repro_torch.core.dpp import DPPService
+    from repro_torch.core.dpp.tensor_cache import TensorCache
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import dlrm_dpp_warehouse
+    from repro_torch.obs import Tracer
+    from repro_torch.obs import report as obs_report
+    from repro_torch.obs.smoke import run_smoke
+
+    engines = dict(device="cuda", engine="torch", decode_engine="torch",
+                   n_workers=2, auto_scale=False)
+    wh, spec = dlrm_dpp_warehouse(CONFIG, BATCH)
+    table = wh.table(spec.table)
+    n_rows = sum(p.num_rows for p in table.partitions.values())
+    n_stripes = sum(len(p.footer.stripes) for p in table.partitions.values())
+    tenants = ("tenant_a", "tenant_b")
+
+    # (a) two tenants at once over the shared stripe cache; the tracer's
+    # session.run spans give each tenant's serve seconds
+    tracer = Tracer()
+    svc = DPPService(wh, tracer=tracer)
+    for name in tenants:
+        svc.create_session(name, spec, **engines)
+    build.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    results = svc.run_all(timeout_s=300)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches_a = build.LAUNCHES.snapshot()
+    if svc.session_errors:
+        raise RuntimeError(f"service tenants failed: {svc.session_errors}")
+    for name in tenants:
+        state = svc.sessions[name].state
+        if state != "COMPLETED":
+            raise RuntimeError(f"service tenant {name} ended {state}")
+        got = sorted(map(_digest, results[name]))
+        if got != ref_digests:
+            raise RuntimeError(f"service tenant {name}'s {len(got)} batches differ from "
+                               "the numpy-engine batches")
+    serve_s = {}
+    for sp in tracer.spans():
+        if sp.name == "session.run":
+            serve_s[sp.labels["tenant"]] = sp.duration
+    fleet = svc.fleet_metrics()
+    cache = svc.stripe_cache
+    if fleet.over_read_ratio != 1.0:
+        raise RuntimeError(f"service over_read_ratio {fleet.over_read_ratio}, expected 1.0")
+    if fleet.storage_rx_bytes > 0.6 * 2 * single.storage_rx_bytes:
+        raise RuntimeError(f"service storage_rx_bytes {fleet.storage_rx_bytes} above 0.6 of "
+                           f"two sessions' {2 * single.storage_rx_bytes}")
+    if fleet.cache_rx_bytes <= 0:
+        raise RuntimeError("the service read nothing from the stripe cache")
+    if cache.hit_rate < 0.5:
+        raise RuntimeError(f"stripe cache hit rate {cache.hit_rate} below 0.5")
+    for tier in ("dram", "flash"):
+        for field in ("bytes_stored", "admitted", "evictions", "hits", "bytes_served"):
+            by_tenant = sum(getattr(getattr(ts, tier), field) for ts in cache.tenants.values())
+            if by_tenant != getattr(getattr(cache, tier), field):
+                raise RuntimeError(f"per-tenant {tier}.{field} {by_tenant} != the tier's "
+                                   f"{getattr(getattr(cache, tier), field)}")
+    if sum(ts.misses for ts in cache.tenants.values()) != cache.misses:
+        raise RuntimeError("per-tenant cache misses do not add up to the tier's")
+    for name in DATA_PATH_KERNELS:
+        if launches_a.get(name, 0) <= 0:
+            raise RuntimeError(f"the service never launched {name}")
+    for general in GENERAL_ROUTES:
+        if launches_a.get(general, 0) != 0:
+            raise RuntimeError(f"the service launched {general}'s general route "
+                               f"{launches_a[general]} times")
+    for name in ("dense_unpack_warp", "ragged_gather_vec"):
+        if launches_a[name] != len(tenants) * n_stripes:
+            raise RuntimeError(f"the service launched {name} {launches_a[name]} times, "
+                               f"expected one a stripe a tenant ({len(tenants) * n_stripes})")
+    print(f"[service] (a) {len(tenants)} tenants, {n_rows} rows each, wall {wall_s:.3f} s, "
+          f"{len(tenants) * n_rows / wall_s:.1f} rows/s; storage_rx {fleet.storage_rx_bytes} "
+          f"cache_rx {fleet.cache_rx_bytes} hit_rate {cache.hit_rate:.4f}; launches "
+          f"{launches_a}; batches byte-identical to the numpy engines", flush=True)
+
+    # (b) the tensor cache: a second tenant of the same spec launches nothing
+    svc_b = DPPService(wh, tensor_cache=TensorCache())
+    first = svc_b.create_session("tc_first", spec, **engines)
+    out_first = first.run_to_completion(timeout_s=300)
+    second = svc_b.create_session("tc_second", spec, **engines)
+    build.LAUNCHES.reset()
+    t1 = time.perf_counter()
+    out_second = second.run_to_completion(timeout_s=300)
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t1
+    launches_b = build.LAUNCHES.snapshot()
+    for sess in (first, second):
+        if sess.state != "COMPLETED":
+            raise RuntimeError(f"tensor-cache tenant {sess.name} ended {sess.state}")
+    m2 = second.worker_metrics()
+    if m2.rows_from_cache != n_rows or m2.rows_done != n_rows:
+        raise RuntimeError(f"the second tenant took {m2.rows_from_cache} of {m2.rows_done} "
+                           f"rows from the tensor cache, expected all {n_rows}")
+    if any(launches_b.values()):
+        raise RuntimeError(f"a tensor-cache hit launched kernels: {launches_b}")
+    if sorted(map(_digest, out_first)) != ref_digests:
+        raise RuntimeError("the first tensor-cache tenant's batches differ from the numpy "
+                           "engines'")
+    if sorted(map(_digest, out_second)) != sorted(map(_digest, out_first)):
+        raise RuntimeError("the tensor-cache tenant's batches differ from the first's")
+    tstats = svc_b.tensor_cache.stats
+    print(f"[service] (b) tensor cache: second tenant {m2.rows_from_cache} of {n_rows} rows "
+          f"from the cache in {second_s:.3f} s, launches {launches_b}, hits {tstats.hits} "
+          f"misses {tstats.misses} bytes_stored {tstats.bytes_stored}", flush=True)
+
+    # (c) the traced two-tenant smoke run on the card and its stall report
+    build.LAUNCHES.reset()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        smoke = run_smoke(str(path), device="cuda")
+        torch.cuda.synchronize()
+        launches_c = build.LAUNCHES.snapshot()
+        doc = json.loads(path.read_text())
+        if not all(smoke.get(t) for t in ("tenant_a", "tenant_b")):
+            raise RuntimeError(f"the smoke run served "
+                               f"{ {k: len(v) for k, v in smoke.items()} } batches")
+        print("[service] (c) the smoke artifact's stall report:", flush=True)
+        if obs_report.main([str(path), "--check"]) != 0:     # prints check()'s findings
+            raise RuntimeError("obs.report.check found problems in the smoke artifact")
+    if launches_c.get("xor_decrypt", 0) <= 0:
+        raise RuntimeError(f"the smoke run launched no data-path kernel: {launches_c}")
+    report = obs_report.build_report(doc)
+
+    return {
+        "tenants": len(tenants), "batches": {n: len(results[n]) for n in tenants},
+        "rows": {n: n_rows for n in tenants}, "stripes": n_stripes,
+        "serve_s": serve_s, "run_all_wall_s": wall_s,
+        "aggregate_rows_per_s": len(tenants) * n_rows / wall_s,
+        "storage_rx_bytes": fleet.storage_rx_bytes, "cache_rx_bytes": fleet.cache_rx_bytes,
+        "single_session": {"storage_rx_bytes": single.storage_rx_bytes,
+                           "extract_out_bytes": single.extract_out_bytes,
+                           "tx_bytes": single.tx_bytes},
+        "hit_rate": cache.hit_rate, "cache_summary": cache.summary(),
+        "tenant_summary": svc.tenant_summary(),
+        "launches": {"a": launches_a, "b": launches_b, "c": launches_c},
+        "tensor_cache": {"second_serve_s": second_s, "rows_from_cache": m2.rows_from_cache,
+                         "hits": tstats.hits, "misses": tstats.misses,
+                         "bytes_stored": tstats.bytes_stored},
+        "report": report,
+    }
 
 
 def _bits_equal(torch, a, b) -> bool:
@@ -2522,11 +2701,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = build.LAUNCHES.snapshot()
     print(f"[serve] main path launches {launches}", flush=True)
-    for name in ("xor_decrypt", "dense_unpack_warp", "ragged_gather_vec",
-                 "fused_transform_vec"):
+    for name in DATA_PATH_KERNELS:
         if launches.get(name, 0) <= 0:
             raise RuntimeError(f"the main path never launched {name}")
-    for general in ("fused_transform", "dense_unpack", "ragged_gather"):
+    for general in GENERAL_ROUTES:
         if launches.get(general, 0) != 0:
             raise RuntimeError(f"the main path launched {general}'s general route "
                                f"{launches[general]} times: every engine operand must "
@@ -2569,6 +2747,14 @@ def main() -> int:
         r["launches"] = launches.get(r["name"], 0)
     results.extend(standalone)            # on no path of the port: 0 launches
     print(f"[phase] serving path {time.perf_counter() - t:.1f} s", flush=True)
+
+    # the multi-tenant service: each of its runs sets the counts to 0 just
+    # before and reads them just after
+    t = time.perf_counter()
+    service = _service_phase(torch, sorted(map(_digest, ref_batches)),
+                             session.worker_metrics())
+    print(json.dumps({"service": service}), flush=True)
+    print(f"[phase] multi-tenant service {time.perf_counter() - t:.1f} s", flush=True)
 
     t = time.perf_counter()
     train_launches, bag_operands, step_bags = _train_path(torch)

@@ -8,7 +8,8 @@ from repro_torch.core.dpp.autoscale import (
 )
 from repro_torch.core.dpp.worker import DPPWorker, WorkerMetrics
 from repro_torch.core.dpp.client import DPPClient, SessionFailed
-from repro_torch.core.dpp.service import DPPSession
+from repro_torch.core.dpp.service import DPPService, DPPSession
+from repro_torch.core.dpp.prefetch import PrefetchMetrics, PrefetchPlanner
 from repro_torch.core.engine import (
     CompiledPlan, EngineStats, NumpyEngine, TorchEngine, TransformEngine,
     compile_pipeline, decode_plan, make_engine,

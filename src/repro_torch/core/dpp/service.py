@@ -5,10 +5,13 @@ Master and an initial worker fleet, monitors health (restarting dead
 Workers without checkpoint restore — they are stateless), runs the
 auto-scaling controller, and wires Clients for the training side.
 
-The port's session runs its workers' extract and transform on the
-session's ``device`` through the torch engines by default.  The
-reference's multi-tenant ``DPPService``, its shared ``StripeCache`` tier,
-the tensor cache and the stripe prefetcher are not ported yet.
+``DPPService`` is the multi-tenant front-end: it runs many concurrent
+sessions over one warehouse behind a single shared ``StripeCache``
+handle, so combo-window jobs re-reading the same partitions (§5.2) hit
+DRAM/flash instead of HDD.
+
+The port's sessions run their workers' extract and transform on the
+session's ``device`` through the torch engines by default.
 """
 from __future__ import annotations
 
@@ -19,13 +22,15 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.core.cache import StripeCache
 from repro_torch.core.dpp.autoscale import (
     ElasticController, ElasticPolicy, observation_from_delta,
 )
-from repro_torch.core.dpp.client import ClientMetrics, DPPClient
+from repro_torch.core.dpp.client import ClientMetrics, DPPClient, SessionFailed
 from repro_torch.core.dpp.master import DPPMaster, SessionSpec
+from repro_torch.core.dpp.prefetch import PrefetchPlanner
 from repro_torch.core.dpp.worker import DPPWorker, WorkerMetrics
-from repro_torch.core.warehouse import Table
+from repro_torch.core.warehouse import Table, Warehouse
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, merge_metrics
 
 
@@ -46,7 +51,10 @@ class DPPSession:
         monitor_interval_s: float = 0.2,
         lease_s: float = 5.0,
         max_workers: int = 16,
+        tensor_cache=None,
         name: str = "session",
+        prefetch: bool = False,
+        prefetch_depth: int = 4,
         on_stop=None,
         dispatch_budget: int = 3,
         elastic_policy: Optional[ElasticPolicy] = None,
@@ -88,11 +96,21 @@ class DPPSession:
             clock=clock,
         )
         # feedback-driven elastic scaling: stall rate + queue depth drive
-        # the worker count, with hysteresis (no prefetcher takes the
-        # controller's depth decisions here)
+        # worker count and prefetch depth, with hysteresis
         self.controller = ElasticController(
             elastic_policy
             or ElasticPolicy(max_workers=max_workers),
+            prefetch_depth=prefetch_depth,
+        )
+        self.tensor_cache = tensor_cache
+        # background cache warmer for upcoming splits: fetches
+        # only the segments plan_reads reports uncached, off-thread
+        self.prefetcher: Optional[PrefetchPlanner] = (
+            PrefetchPlanner(
+                table, self.master, spec.feature_ids,
+                tenant=name, depth=prefetch_depth,
+            )
+            if prefetch else None
         )
         self.workers: List[DPPWorker] = []
         # removed workers (crashed-and-replaced, drained scale-downs) keep
@@ -102,7 +120,7 @@ class DPPSession:
         for _ in range(n_workers):
             self._launch_worker()
         self.clients = [
-            DPPClient(f"client{i}", self.workers,
+            DPPClient(f"client{i}", self.workers, prefetcher=self.prefetcher,
                       master=self.master, tenant=name, tracer=tracer)
             for i in range(n_clients)
         ]
@@ -142,7 +160,7 @@ class DPPSession:
     def _launch_worker(self, fail_after: Optional[int] = None) -> DPPWorker:
         w = DPPWorker(
             f"w{self._wid}", self.master, self.table,
-            fail_after_splits=fail_after,
+            fail_after_splits=fail_after, tensor_cache=self.tensor_cache,
             tenant=self.name, engine=self.engine,
             decode_engine=self.decode_engine, double_buffer=self.double_buffer,
             tracer=self.tracer, device=self.device,
@@ -152,6 +170,8 @@ class DPPSession:
         return w
 
     def start(self) -> None:
+        if self.prefetcher is not None:
+            self.prefetcher.start()
         for w in self.workers:
             if w._thread is None:
                 w.start()
@@ -160,6 +180,8 @@ class DPPSession:
 
     def stop(self) -> None:
         self._stop.set()
+        if self.prefetcher is not None:
+            self.prefetcher.stop()
         # join the monitor BEFORE snapshotting the fleet: it is the only
         # thread that launches workers, so afterwards no worker can be
         # born unseen and leak past the stop/join below
@@ -170,6 +192,8 @@ class DPPSession:
             w.stop()
         for w in fleet:
             w.join(timeout=2.0)
+        if self.prefetcher is not None:
+            self.prefetcher.join(timeout=2.0)
         if self._on_stop is not None:
             self._on_stop()
 
@@ -215,6 +239,8 @@ class DPPSession:
             decision = self.controller.observe(
                 observation_from_delta(delta, self.monitor_interval_s)
             )
+            if decision.prefetch_depth is not None and self.prefetcher is not None:
+                self.prefetcher.set_depth(decision.prefetch_depth)
             if decision.worker_delta > 0:
                 for _ in range(decision.worker_delta):
                     w = self._launch_worker()
@@ -294,3 +320,133 @@ class DPPSession:
         finally:
             self.stop()
         return out
+
+
+class DPPService:
+    """Multi-tenant DPP front-end: concurrent sessions over one warehouse
+    sharing a single ``StripeCache`` (and optional ``TensorCache``).
+
+    Production DPP is a fleet serving many training jobs at once; the
+    cross-job locality the paper measures (§5.2: jobs in a combo window
+    re-read the same partitions) only pays off if the cache handle is
+    shared *across* sessions, which is exactly what this class wires up.
+    """
+
+    def __init__(
+        self,
+        warehouse: Warehouse,
+        stripe_cache: Optional[StripeCache] = None,
+        tensor_cache=None,
+        enable_stripe_cache: bool = True,
+        clock: Callable[[], float] = time.time,
+        tracer=NULL_TRACER,
+    ):
+        self.warehouse = warehouse
+        self._clock = clock
+        self.tracer = tracer
+        if tracer.enabled:
+            warehouse.fs.attach_tracer(tracer)
+        self.stripe_cache = stripe_cache or (
+            StripeCache() if enable_stripe_cache else None
+        )
+        if self.stripe_cache is not None:
+            warehouse.attach_cache(self.stripe_cache)
+        self.tensor_cache = tensor_cache
+        self.sessions: Dict[str, DPPSession] = {}
+        self.session_errors: Dict[str, SessionFailed] = {}
+
+    def create_session(
+        self,
+        name: str,
+        spec: SessionSpec,
+        dram_share: float = 0.0,
+        flash_share: float = 0.0,
+        **kw,
+    ) -> DPPSession:
+        """Register a session; its ``name`` is the cache tenant id.  A
+        non-zero ``dram_share``/``flash_share`` reserves that fraction of
+        the shared tier for this job (borrow-when-idle: unreserved and
+        idle capacity stays usable by everyone).  The reservation lapses
+        automatically when the session stops, so sequential jobs can each
+        claim large shares without exhausting the 1.0 budget and a dead
+        job's resident bytes stop being eviction-protected.
+
+        ``engine``, ``decode_engine`` and ``device`` are forwarded to every
+        worker: ``engine="torch"`` (the default) runs the transform stage
+        wave-fused through ``kernels.fused_transform`` on ``device``
+        (``cuda`` unless asked for ``cpu``) instead of per-feature numpy;
+        ``decode_engine="torch"`` does the same for the extract stage
+        (whole-stripe batched decode via ``kernels.decode``, see
+        ``repro_torch.core.decode``) and ``double_buffer`` overlaps stripe
+        N+1's extent fetch with stripe N's decode.  All engines produce
+        byte-identical batches, so mixed-engine fleets can share one
+        ``TensorCache``."""
+        reserve = (dram_share or flash_share) and self.stripe_cache is not None
+        if reserve:
+            # validate the share up front (so an over-committed request
+            # fails before any session machinery spins up) ...
+            self.stripe_cache.tenancy.set_share(name, dram_share, flash_share)
+        kw.setdefault("tracer", self.tracer)
+        try:
+            sess = DPPSession(
+                spec, self.warehouse.table(spec.table), name=name,
+                on_stop=(
+                    (lambda: self.stripe_cache.tenancy.clear_share(name))
+                    if reserve else None
+                ),
+                tensor_cache=kw.pop("tensor_cache", self.tensor_cache), **kw,
+            )
+        except BaseException:
+            if reserve:
+                # ... but never leak the reservation if construction fails:
+                # on_stop only runs for sessions that actually exist
+                self.stripe_cache.tenancy.clear_share(name)
+            raise
+        self.sessions[name] = sess
+        return sess
+
+    def run_all(
+        self, max_batches: Optional[int] = None, timeout_s: float = 120.0
+    ) -> Dict[str, List[Dict[str, np.ndarray]]]:
+        """Run every registered session to completion concurrently —
+        the combo-window workload whose overlapping reads the shared
+        cache collapses."""
+        results: Dict[str, List[Dict[str, np.ndarray]]] = {}
+        self.session_errors: Dict[str, SessionFailed] = {}
+
+        def _drive(name: str, sess: DPPSession) -> None:
+            try:
+                results[name] = sess.run_to_completion(max_batches, timeout_s)
+            except SessionFailed as e:
+                # one tenant's poisoned data must not take down the fleet:
+                # record the structured failure, keep the other sessions
+                results[name] = []
+                self.session_errors[name] = e
+
+        threads = [
+            threading.Thread(target=_drive, args=(n, s), daemon=True)
+            for n, s in self.sessions.items()
+        ]
+        for t in threads:
+            t.start()
+        deadline = self._clock() + timeout_s
+        for t in threads:
+            t.join(max(0.0, deadline - self._clock()))
+        # a wedged session past the deadline reports empty rather than
+        # silently dropping its key
+        for name in self.sessions:
+            results.setdefault(name, [])
+        return results
+
+    def fleet_metrics(self) -> WorkerMetrics:
+        total = WorkerMetrics()
+        for s in self.sessions.values():
+            total.merge(s.worker_metrics())
+        return total
+
+    def cache_summary(self) -> Dict[str, float]:
+        return self.stripe_cache.summary() if self.stripe_cache else {}
+
+    def tenant_summary(self) -> Dict[str, Dict[str, float]]:
+        """Per-job cache accounting (hits, resident bytes, evictions)."""
+        return self.stripe_cache.tenant_summary() if self.stripe_cache else {}

@@ -130,6 +130,7 @@ class DPPWorker:
         table: Table,
         buffer_size: int = 8,
         fail_after_splits: Optional[int] = None,   # fault-injection hook
+        tensor_cache=None,                         # shared TensorCache (§7.5)
         prefetch_stripes: int = 2,                 # extract-ahead depth
         tenant: Optional[str] = None,              # owning job for cache shares
         engine="torch",                            # TransformEngine name/factory
@@ -156,6 +157,7 @@ class DPPWorker:
         self.buffer: "queue.Queue[Dict[str, np.ndarray]]" = queue.Queue(buffer_size)
         self.metrics = WorkerMetrics()
         self.fail_after_splits = fail_after_splits
+        self.tensor_cache = tensor_cache
         self.prefetch_stripes = max(1, prefetch_stripes)
         self._stop = threading.Event()
         self._drain = threading.Event()
@@ -258,6 +260,22 @@ class DPPWorker:
         """
         meta = self.table.partitions[split.partition]
 
+        if self.tensor_cache is not None:
+            from repro_torch.core.dpp.tensor_cache import TensorCache
+
+            # generation-aware key: a partition rewrite bumps
+            # ``meta.generation``, so post-rewrite splits can never be
+            # served the pre-rewrite preprocessed tensors.  A hit returns
+            # before any extract or transform: no kernel is launched
+            key = TensorCache.key(self.spec, split, meta.generation)
+            cached = self.tensor_cache.get(key)
+            if cached is not None:
+                self.metrics.splits_done += 1
+                self.metrics.rows_done += split.row_end - split.row_start
+                self.metrics.rows_from_cache += split.row_end - split.row_start
+                return cached
+
+        t_split0 = time.perf_counter()
         prefetch: "queue.Queue" = queue.Queue(self.prefetch_stripes)
         abort = threading.Event()   # consumer died: let the producer exit
 
@@ -415,6 +433,9 @@ class DPPWorker:
                 tenant=self.tenant or "", worker=self.worker_id,
                 split=split.split_id,
             )
+
+        if self.tensor_cache is not None:
+            self.tensor_cache.put(key, out, cpu_s=time.perf_counter() - t_split0)
 
         m.tx_bytes += sum(sum(a.nbytes for a in b.values()) for b in out)
         m.splits_done += 1

@@ -36,6 +36,14 @@ def dlrm_dpp_table(cfg: DLRMConfig, batch_size: int, n_partitions: int = 2,
                    rows_per_partition: int = 2048) -> Tuple[Table, SessionSpec]:
     """The synthetic warehouse table and the DPP session spec that
     ``dlrm_dpp_batches`` serves."""
+    wh, spec = dlrm_dpp_warehouse(cfg, batch_size, n_partitions, rows_per_partition)
+    return wh.table(spec.table), spec
+
+
+def dlrm_dpp_warehouse(cfg: DLRMConfig, batch_size: int, n_partitions: int = 2,
+                       rows_per_partition: int = 2048) -> Tuple[Warehouse, SessionSpec]:
+    """``dlrm_dpp_table``'s table inside its warehouse, for a ``DPPService``
+    whose tenants share the warehouse's stripe cache."""
     schema = make_schema("dlrm_table", n_dense=cfg.num_dense * 3,
                          n_sparse=max(cfg.num_tables * 3, 8), seed=0)
     wh = Warehouse()
@@ -63,7 +71,7 @@ def dlrm_dpp_table(cfg: DLRMConfig, batch_size: int, n_partitions: int = 2,
         sparse_keys=tuple(f"s{f}" for f in sparse) + tuple(f"g{j}" for j in range(n_gen)),
         max_ids_per_feature=cfg.max_ids_per_feature,
     )
-    return table, spec
+    return wh, spec
 
 
 def dlrm_dpp_batches(

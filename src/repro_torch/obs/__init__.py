@@ -12,8 +12,10 @@ Three stdlib-only pieces, threaded through every DSI stage:
     dataclasses behind one snapshot/delta API; the ``ElasticController``
     observations are rebuilt on these deltas.
 
-A copy of ``repro.obs`` (the reference package) without its report and
-smoke entry points, which are not ported yet.
+``python -m repro_torch.obs.report`` turns a trace + registry snapshot
+into the paper's Table-7/Table-9 stall-attribution breakdown;
+``python -m repro_torch.obs.smoke --device {cuda,cpu}`` produces a traced
+two-tenant artifact whose workers run on that device.
 """
 from repro_torch.obs.meta import counter, gauge, merge_metrics, metric_fields
 from repro_torch.obs.registry import MetricsRegistry, Snapshot

@@ -57,19 +57,12 @@ from typing import Dict, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core.cache.stripe_cache import DRAM_TIER, FLASH_TIER
 from repro_torch.core.popularity import PopularityTracker
 from repro_torch.core.tectonic import IOStats, MediaSpec
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
 from repro_torch.obs import counter, gauge
-
-# Cache-tier device models, copied from the reference's
-# ``repro.core.cache.stripe_cache`` (the stripe-cache tier is not ported
-# yet).  DRAM is effectively seek-free; FLASH is a single NVMe cache device.
-DRAM_TIER = MediaSpec(name="dram", seek_ms=0.001, transfer_MBps=20_000.0,
-                      capacity_TB=0.000256, power_W=5.0)
-FLASH_TIER = MediaSpec(name="flash", seek_ms=0.02, transfer_MBps=3_500.0,
-                       capacity_TB=1.92, power_W=25.0)
 
 # Device-memory model for the hot tier: HBM-class bandwidth, tiny capacity.
 HBM_TIER = MediaSpec(name="hbm", seek_ms=0.0002, transfer_MBps=1_200_000.0,
