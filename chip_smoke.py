@@ -77,6 +77,29 @@
    ``torch.nn.functional.embedding_bag`` as the library yardstick), in
    turns too; then the same at every bag of one step (21,504 bags of the
    first batch folded onto the same hot-slot table), not gated on time.
+   Then checkpoint and restart (``_checkpoint_phase``):
+   ``examples/torch/train_dlrm_e2e.py``'s ``dlrm-100m`` (102.6 M
+   parameters) at its own size on the card, batch 256, 4 partitions x
+   8,192 rows, 3 workers, 200 steps.  Phase 1 trains 100 steps into a
+   fresh temporary checkpoint directory; checks that the newest complete
+   step is 100 and the kept steps are ``keep``'s, that the step-100
+   shard is within 1% of the bytes params, mu and nu take, and that every
+   leaf read back from disk is byte-identical to the trainer's returned
+   state.  Phase 2 restarts a fresh trainer on that directory with a
+   fresh DPP session and checks that it resumes at step 101, ends at 200
+   and ends with a loss below phase 1's first.  The launch counts are set
+   to 0 before each session and read after it: each launches
+   ``xor_decrypt``, ``dense_unpack_warp``, ``ragged_gather_vec`` and
+   ``fused_transform_vec`` and no general route.  Prints a
+   ``{"checkpoint": ...}`` line (shard bytes, each save's and the
+   restore's seconds, each phase's steps/s and stall fraction, the first
+   and last loss, the launches), and removes the directory.  Then the
+   paper's characterization models (host numpy only): Table 9 and Table
+   7 from ``core/dpp/simulator.py``, Fig. 1's power split of each
+   workload, ``coordination.simulate`` (60 days, seed 3) and the
+   scheduler's ``replication_report``, held to the bands of
+   ``tests/test_simulator.py`` and ``tests/test_extensions.py``; prints a
+   ``{"characterization": ...}`` line.
 6. The LM serving path (``_lm_serve_path``): with the launch counts set to 0,
    serves the full-width ``qwen3-8b`` (36 layers, d_model 4096, bf16,
    weights drawn on the card from seed 0) through
@@ -188,6 +211,15 @@ SSD_TOL = {"float32": (5e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}
 DATA_PATH_KERNELS = ("xor_decrypt", "dense_unpack_warp", "ragged_gather_vec",
                      "fused_transform_vec")
 GENERAL_ROUTES = ("fused_transform", "dense_unpack", "ragged_gather")
+# the checkpoint phase: examples/torch/train_dlrm_e2e.py's own step count
+CKPT_STEPS = 200
+# the paper's Table 9 (tests/test_simulator.py): DPP worker throughput and
+# workers per trainer of RM1-RM3 on C-v1, held within 8% (12% for wpt)
+TABLE9 = {
+    "RM1": dict(kqps=11.6, rx=0.8, trx=1.37, tx=0.68, wpt=24.2),
+    "RM2": dict(kqps=8.0, rx=1.2, trx=0.96, tx=0.50, wpt=9.4),
+    "RM3": dict(kqps=36.9, rx=0.8, trx=1.01, tx=0.22, wpt=55.2),
+}
 # kernels whose registers and spills the build prints on their own lines
 PTXAS_KERNELS = ("fused_transform_kernel", "fused_transform_vec_kernel",
                  "embedding_bag_kernel", "embedding_bag_warp_kernel",
@@ -1526,6 +1558,210 @@ def _bag_checks(torch, operands, step_bags, launches):
     return rows
 
 
+def _checkpoint_phase(torch):
+    """``examples/torch/train_dlrm_e2e.py`` at its own size on the card:
+    phase 1 trains half the steps into a fresh checkpoint directory, phase
+    2 restarts a fresh trainer on it with a fresh DPP session.  Checks the
+    checkpoints on disk (the newest step, ``keep``, the shard's bytes, the
+    state read back byte-identical to the trainer's), the resume and the
+    loss, and each session's launches; returns the phase's record."""
+    import os
+    import runpy
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.convert import flatten
+    from repro_torch.kernels import build
+    from repro_torch.models.common import param_count
+
+    ex = runpy.run_path(str(Path(__file__).resolve().parent / "examples" / "torch"
+                            / "train_dlrm_e2e.py"))
+    make_trainer, run_phase = ex["make_trainer"], ex["run_phase"]
+
+    def timed(fn, seconds):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            seconds.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def session_launches(label):
+        launches = build.LAUNCHES.snapshot()
+        print(f"[ckpt] {label} session launches {launches}", flush=True)
+        for name in DATA_PATH_KERNELS:
+            if launches.get(name, 0) <= 0:
+                raise RuntimeError(f"the {label} session never launched {name}")
+        for general in GENERAL_ROUTES:
+            if launches.get(general, 0) != 0:
+                raise RuntimeError(f"the {label} session launched {general}'s general "
+                                   f"route {launches[general]} times")
+        return launches
+
+    def kept(last, ends, every, keep):
+        """The steps a manager keeps after saves every ``every`` steps up to
+        ``last`` and at the end of each phase (``ends``)."""
+        return sorted(set(range(every, last + 1, every)) | set(ends))[-keep:]
+
+    def steps_per_s(trainer):
+        loop_s = sum(m.step_time_s + m.embed_fetch_s + m.stall_s for m in trainer.history)
+        return len(trainer.history) / loop_s
+
+    ckpt_dir = tempfile.mkdtemp(prefix="dlrm_ckpt_")
+    try:
+        free = shutil.disk_usage(ckpt_dir).free
+        print(f"[ckpt] checkpoint directory {ckpt_dir}, {free / 1e9:.1f} GB free", flush=True)
+        saves, restores = [], []
+        # phase 1: train CKPT_STEPS // 2 steps, saving every 50 and at the end
+        trainer = make_trainer(CKPT_STEPS, ckpt_dir, "cuda")
+        n_params = param_count(trainer.model.params())
+        trainer.cfg.max_steps = CKPT_STEPS // 2
+        trainer.ckpt.save = timed(trainer.ckpt.save, saves)
+        build.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        state, _ = run_phase(trainer, "cuda")
+        phase1_s = time.perf_counter() - t0
+        launches1 = session_launches("phase 1")
+        half = CKPT_STEPS // 2
+        if state["step"] != half or trainer.ckpt.latest_step() != half:
+            raise RuntimeError(f"phase 1 ended at step {state['step']}, newest checkpoint "
+                               f"{trainer.ckpt.latest_step()}; expected {half}")
+        every, keep = trainer.cfg.checkpoint_every, trainer.ckpt.keep
+        if trainer.ckpt.all_steps() != kept(half, {half}, every, keep):
+            raise RuntimeError(f"checkpoints {trainer.ckpt.all_steps()} after phase 1")
+        shard = os.path.join(ckpt_dir, f"step_{half:08d}", "shard_0.msgpack")
+        shard_bytes = os.path.getsize(shard)
+        # params, mu and nu in float32 and the int32 step: the bytes the
+        # shard must hold, its msgpack framing aside
+        reckoned = 3 * 4 * n_params + 4
+        if abs(shard_bytes - reckoned) > 0.01 * reckoned:
+            raise RuntimeError(f"shard of {shard_bytes} B, reckoned {reckoned} B")
+        t0 = time.perf_counter()
+        on_disk = load_pytree(trainer.checkpoint_tree(state["params"], state["opt"]),
+                              os.path.dirname(shard))
+        read_s = time.perf_counter() - t0
+        pairs = [("params." + k, v, state["params"][k])
+                 for k, v in flatten(on_disk["params"]).items()]
+        for part in ("mu", "nu"):
+            pairs += [(f"{part}.{k}", v, state["opt"][part][k])
+                      for k, v in flatten(on_disk["opt"][part]).items()]
+        pairs.append(("step", on_disk["opt"]["step"], state["opt"]["step"]))
+        if len(pairs) != 3 * len(state["params"]) + 1:
+            raise RuntimeError(f"{len(pairs)} leaves read back")
+        for name, got, want in pairs:
+            want = want.cpu()
+            if got.dtype == torch.float32:
+                same = _bits_equal(torch, got, want)
+            else:
+                same = got.dtype == want.dtype and torch.equal(got, want)
+            if not same:
+                raise RuntimeError(f"checkpoint leaf {name} read back differs from the "
+                                   "trainer's state")
+        del on_disk, pairs
+        print(f"[ckpt] phase 1: {len(trainer.history)} steps in {phase1_s:.1f} s; "
+              f"checkpoints {trainer.ckpt.all_steps()}; shard {shard_bytes} B (reckoned "
+              f"{reckoned} B); {3 * len(state['params']) + 1} leaves read back "
+              f"byte-identical in {read_s:.3f} s", flush=True)
+        losses1 = [m.loss for m in trainer.history]
+        phase1 = {"steps_per_s": steps_per_s(trainer), "phase_s": phase1_s,
+                  "stall_fraction": trainer.stall_fraction()}
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        # phase 2: a fresh trainer and session on the same directory
+        trainer2 = make_trainer(CKPT_STEPS, ckpt_dir, "cuda")
+        trainer2.ckpt.save = timed(trainer2.ckpt.save, saves)
+        trainer2.maybe_restore = timed(trainer2.maybe_restore, restores)
+        build.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        state2, _ = run_phase(trainer2, "cuda")
+        phase2_s = time.perf_counter() - t0
+        launches2 = session_launches("phase 2")
+        losses2 = [m.loss for m in trainer2.history]
+        if trainer2.history[0].step != half + 1 or state2["step"] != CKPT_STEPS:
+            raise RuntimeError(f"phase 2 resumed at step {trainer2.history[0].step} and "
+                               f"ended at {state2['step']}; expected {half + 1} and "
+                               f"{CKPT_STEPS}")
+        if not np.isfinite(losses1 + losses2).all() or not losses2[-1] < losses1[0]:
+            raise RuntimeError(f"loss {losses1[0]} -> {losses2[-1]}")
+        if trainer2.ckpt.all_steps() != kept(CKPT_STEPS, {half, CKPT_STEPS}, every, keep):
+            raise RuntimeError(f"checkpoints {trainer2.ckpt.all_steps()} after phase 2")
+        phase2 = {"steps_per_s": steps_per_s(trainer2), "phase_s": phase2_s,
+                  "stall_fraction": trainer2.stall_fraction()}
+        record = {
+            "config": ex["CONFIG"].name, "params": n_params, "steps": CKPT_STEPS,
+            "shard_bytes": shard_bytes, "reckoned_bytes": reckoned, "save_s": saves,
+            "restore_s": restores[0], "read_back_s": read_s,
+            "phase1": phase1, "phase2": phase2,
+            "first_loss": losses1[0], "last_loss": losses2[-1],
+            "resumed_at": trainer2.history[0].step, "finished_at": state2["step"],
+            "launches": {"phase1": launches1, "phase2": launches2},
+        }
+        print(f"[ckpt] phase 2 resumed at step {record['resumed_at']} and finished at "
+              f"{record['finished_at']}; loss {losses1[0]:.4f} -> {losses2[-1]:.4f}; "
+              f"saves {['%.3f' % s for s in saves]} s, restore {restores[0]:.3f} s",
+              flush=True)
+        return record
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def _characterization():
+    """The paper's characterization models (host numpy), each once, held to
+    the bands of ``tests/test_simulator.py`` and ``tests/test_extensions.py``."""
+    from repro_torch.core.coordination import ReleaseProcessConfig, simulate
+    from repro_torch.core.dpp.simulator import (
+        C_V1, RM1, WORKLOADS, colocated_preprocessing_stall, dsi_power_split,
+        worker_throughput, workers_per_trainer,
+    )
+    from repro_torch.core.scheduler import (
+        Region, demands_from_release_sim, greedy_colocate, replicate_everywhere,
+        replication_report,
+    )
+
+    out = {"host_only": True, "table9": {}, "power_split": {}}
+    for name, want in TABLE9.items():
+        w = WORKLOADS[name]
+        t = worker_throughput(w, C_V1)
+        got = dict(kqps=t.kqps, rx=t.storage_rx_gbps, trx=t.transform_rx_gbps,
+                   tx=t.tx_gbps, wpt=workers_per_trainer(w, C_V1))
+        for k, v in got.items():
+            band = 0.12 if k == "wpt" else 0.08
+            if abs(v - want[k]) / want[k] >= band:
+                raise RuntimeError(f"Table 9 {name} {k} {v} vs the paper's {want[k]}")
+        out["table9"][name] = dict(got, bound=t.bound)
+    stall = colocated_preprocessing_stall(RM1)
+    if not (0.45 < stall["gpu_stall_frac"] < 0.7 and stall["cpu_util"] > 0.85):
+        raise RuntimeError(f"Table 7 co-located stall {stall}")
+    out["table7_rm1"] = stall
+    for name, w in WORKLOADS.items():
+        out["power_split"][name] = dsi_power_split(w, n_trainers=16)
+    p1, p2 = out["power_split"]["RM1"], out["power_split"]["RM2"]
+    if not (p1["preprocessing_frac"] + p1["storage_frac"] > 0.5
+            and p2["training_frac"] > p1["training_frac"]):
+        raise RuntimeError(f"Fig. 1 power split {out['power_split']}")
+    jobs = simulate(ReleaseProcessConfig(days=60, seed=3))
+    demands = demands_from_release_sim(jobs, {})
+    total_peak = sum(d.peak_compute for d in demands)
+    regions = [Region(f"R{i}", capacity=total_peak, storage_pb=1e3) for i in range(5)]
+    packed = greedy_colocate(demands, regions)
+    rep = replication_report(demands, replicate_everywhere(demands, regions), packed)
+    if rep["storage_saved_frac"] <= 0.3:
+        raise RuntimeError(f"scheduler saved {rep['storage_saved_frac']} of storage")
+    for d in demands:
+        if packed.replicas(d.name) < 2:
+            raise RuntimeError(f"{d.name} placed in {packed.replicas(d.name)} regions")
+    for r in regions:
+        if packed.region_peak[r.name] > r.capacity + 1e-6:
+            raise RuntimeError(f"region {r.name} over capacity")
+    out["release_sim_jobs"] = len(jobs)
+    out["replication"] = rep
+    return out
+
+
 def _flash_close(got, want, v, dtype_name):
     """The largest |got - want| in units of rms(v), and the largest share of
     its per-element bound that an element uses: the sweep's bound is
@@ -2762,6 +2998,13 @@ def main() -> int:
     t = time.perf_counter()
     results.extend(_bag_checks(torch, bag_operands, step_bags, train_launches))
     print(f"[phase] embedding_bag checks {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    print(json.dumps({"checkpoint": _checkpoint_phase(torch)}), flush=True)
+    print(f"[phase] checkpoint and restart {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    print(json.dumps({"characterization": _characterization()}), flush=True)
+    print(f"[phase] characterization models (host only) {time.perf_counter() - t:.1f} s",
+          flush=True)
 
     t = time.perf_counter()
     lm_launches, lm_operands, lm = _lm_serve_path(torch)

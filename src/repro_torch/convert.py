@@ -60,28 +60,40 @@ def column_batch_from_numpy(
                        labels=labels)
 
 
-def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+def flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """A nested tree -> its leaves by dotted name, in sorted order; the
+    leaves as they are."""
     out = {}
     for k in sorted(tree):
         v = tree[k]
         if isinstance(v, dict):
-            out.update(_flatten(v, f"{prefix}{k}."))
+            out.update(flatten(v, f"{prefix}{k}."))
         else:
-            out[f"{prefix}{k}"] = np.asarray(v)
+            out[f"{prefix}{k}"] = v
     return out
 
 
-def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
-    """Dotted names -> a nested tree of numpy leaves (tensors converted)."""
+def nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Dotted names -> a nested tree, the inverse of ``flatten``; the
+    leaves as they are."""
     out: Dict[str, Any] = {}
     for name in sorted(flat):
         *path, leaf = name.split(".")
         node = out
         for p in path:
             node = node.setdefault(p, {})
-        v = flat[name]
-        node[leaf] = _array(v) if isinstance(v, torch.Tensor) else v
+        node[leaf] = flat[name]
     return out
+
+
+def _flatten(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    return {k: np.asarray(v) for k, v in flatten(tree).items()}
+
+
+def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Dotted names -> a nested tree of numpy leaves (tensors converted)."""
+    return nest({k: _array(v) if isinstance(v, torch.Tensor) else v
+                 for k, v in flat.items()})
 
 
 def dlrm_params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -126,11 +138,12 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 
 def _array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array of the same dtype; bfloat16 as numpy's
+    ``"bfloat16"``, which exists once the reference (its ``ml_dtypes``)
+    is loaded in the process, the only place such a tree is read."""
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes           # numpy's bfloat16; installed beside the reference
-
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
     return t.numpy()
 
 

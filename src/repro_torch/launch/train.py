@@ -2,6 +2,7 @@
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-paper --steps 50 --smoke
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --checkpoint-dir /path/to/ckpt
 
 DLRM runs the full paper pipeline (synthetic warehouse partitions -> DPP
 extract/transform/load -> DLRM train steps), every stage on ``--device``
@@ -116,13 +117,23 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--smoke", action="store_true", help="use the reduced config")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save every max(steps // 4, 10) steps and at the end")
+    ap.add_argument("--resume", action="store_true",
+                    help="accepted for the reference's command line and not read: the "
+                         "trainer resumes whenever --checkpoint-dir holds a complete "
+                         "checkpoint, as the reference's does")
     args = ap.parse_args(argv)
 
     cfg = cfglib.get_smoke_config(args.arch) if args.smoke else cfglib.get_config(args.arch)
     trainer = Trainer(
         cfg,
         OptimizerConfig(learning_rate=1e-3, warmup_steps=10, total_steps=args.steps),
-        TrainerConfig(max_steps=args.steps),
+        TrainerConfig(
+            checkpoint_dir=args.checkpoint_dir,
+            max_steps=args.steps,
+            checkpoint_every=max(args.steps // 4, 10),
+        ),
         device=args.device,
     )
     batches, session = dlrm_dpp_batches(cfg, args.batch_size, device=args.device)

@@ -118,6 +118,15 @@ class ParamSpec:
     scale: float = 1.0
 
 
+def param_count(tree: Any) -> int:
+    """Total parameter count of a tree: nested dicts whose leaves are
+    tensors, arrays or ``ParamSpec``s (a model's ``params()``, say).  The
+    reference's also takes a ``ModelConfig``."""
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    return math.prod(tree.shape)
+
+
 def stacked(spec: ParamSpec, n: int) -> ParamSpec:
     """Add a leading layer ("stack") dimension, as the reference does."""
     return dataclasses.replace(spec, shape=(n,) + spec.shape)

@@ -13,11 +13,18 @@ training loop.  Every step feeds ``StepMetrics`` into a ``MetricsRegistry``
 (``train.*`` + ``embed.*``) so step time can be attributed across data
 stall, embedding fetch, and compute.
 
+Fault tolerance: with ``checkpoint_dir`` set, ``fit`` resumes from the
+newest complete checkpoint (trainer crash) and saves ``{"params", "opt"}``
+every ``checkpoint_every`` steps and at the end, in the reference's
+layout and bytes (``repro_torch.checkpoint``), so a checkpoint crosses
+between the packages.  On the sparse path that is the MLPs and their
+AdamW state: the store's host tables are not saved, as in the reference.
+
 A port of the reference's ``repro.train.trainer`` for one device.  The
 model, the optimizer state and the step run on ``device`` (``cuda`` unless
 the caller asks for the CPU); the store's tables and bookkeeping stay on
-the host.  Not ported yet: checkpointing (``checkpoint_dir``,
-``maybe_restore``) and the device mesh (``mesh``, ``rules``, ``remesh``).
+the host.  Not ported yet: the device mesh (``mesh``, ``rules``,
+``remesh``).
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ from typing import Any, Dict, Iterable, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.convert import flatten, nest
 from repro_torch.models import build_model
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, counter, gauge
 from repro_torch.optim import OptimizerConfig, adamw_init, adamw_update, wsd_schedule
@@ -35,6 +44,8 @@ from repro_torch.optim import OptimizerConfig, adamw_init, adamw_update, wsd_sch
 
 @dataclasses.dataclass
 class TrainerConfig:
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 50
     log_every: int = 10
     max_steps: int = 200
     batch_timeout_s: float = 30.0
@@ -91,6 +102,11 @@ class Trainer:
         self.device = self.model.device
         self.opt_cfg = opt_cfg or OptimizerConfig()
         self.cfg = trainer_cfg or TrainerConfig()
+        self.ckpt = (
+            CheckpointManager(self.cfg.checkpoint_dir)
+            if self.cfg.checkpoint_dir
+            else None
+        )
         self._train_step = self._sparse_step if self._sparse else self._dense_step
         self.history: list[StepMetrics] = []
         self.metrics = TrainMetrics()
@@ -128,10 +144,13 @@ class Trainer:
         lr = wsd_schedule(self.opt_cfg, opt["step"])
         return opt, loss.detach(), gnorm, g_pooled, lr
 
+    def _params(self) -> Dict[str, torch.Tensor]:
+        return {k: p.detach() for k, p in self.model.params().items()}
+
     def init_state(self, seed: int = 0) -> Dict[str, Any]:
         """Fresh weights from ``seed`` and a zero optimizer state."""
         self.model.init_weights(seed)
-        params = {k: p.detach() for k, p in self.model.params().items()}
+        params = self._params()
         return {"params": params, "opt": adamw_init(params, self.opt_cfg), "step": 0}
 
     def load_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
@@ -149,8 +168,35 @@ class Trainer:
         opt = {"mu": {k: v.to(dev) for k, v in opt["mu"].items()},
                "nu": {k: v.to(dev) for k, v in opt["nu"].items()},
                "step": torch.as_tensor(opt["step"], dtype=torch.int32).to(dev)}
-        return {"params": {k: p.detach() for k, p in params.items()},
-                "opt": opt, "step": int(state["step"])}
+        return {"params": self._params(), "opt": opt, "step": int(state["step"])}
+
+    # -- fault tolerance ---------------------------------------------------
+
+    @staticmethod
+    def checkpoint_tree(params: Dict[str, Any], opt: Dict[str, Any]) -> Dict[str, Any]:
+        """The reference's checkpoint tree ``{"params", "opt"}`` of the
+        port's flat state: the dotted names nested, nothing transposed."""
+        return {"params": nest(params),
+                "opt": {"mu": nest(opt["mu"]), "nu": nest(opt["nu"]), "step": opt["step"]}}
+
+    def maybe_restore(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The newest complete checkpoint, loaded into the model and onto
+        the device, if the directory holds one; else ``state``."""
+        if self.ckpt and self.ckpt.latest_step() is not None:
+            step, restored = self.ckpt.restore(
+                self.checkpoint_tree(state["params"], state["opt"])
+            )
+            opt = restored["opt"]
+            return self.load_state({
+                "params": flatten(restored["params"]),
+                "opt": {"mu": flatten(opt["mu"]), "nu": flatten(opt["nu"]),
+                        "step": opt["step"]},
+                "step": step,
+            })
+        return state
+
+    def _save(self, step: int, opt: Dict[str, Any]) -> None:
+        self.ckpt.save(step, self.checkpoint_tree(self._params(), opt))
 
     # -- loop -----------------------------------------------------------------
 
@@ -168,6 +214,7 @@ class Trainer:
         state: Optional[Dict[str, Any]] = None,
     ) -> Dict[str, Any]:
         state = self.load_state(state) if state is not None else self.init_state()
+        state = self.maybe_restore(state)
         opt, step = state["opt"], state["step"]
 
         it = iter(batches)
@@ -227,8 +274,11 @@ class Trainer:
             self.metrics.step_s += m.step_time_s
             self.metrics.stall_s += m.stall_s
             self.metrics.embed_fetch_s += m.embed_fetch_s
-        params = {k: p.detach() for k, p in self.model.params().items()}
-        return {"params": params, "opt": opt, "step": step}
+            if self.ckpt and step % self.cfg.checkpoint_every == 0:
+                self._save(step, opt)
+        if self.ckpt:
+            self._save(step, opt)
+        return {"params": self._params(), "opt": opt, "step": step}
 
     # -- reporting ----------------------------------------------------------------
 
