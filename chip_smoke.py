@@ -94,6 +94,27 @@
    ``{"checkpoint": ...}`` line (shard bytes, each save's and the
    restore's seconds, each phase's steps/s and stall fraction, the first
    and last loss, the launches), and removes the directory.  Then the
+   sharded DLRM step (``_sharded_phase``): ``dlrm-paper`` at full width
+   and its full 2,000,000-row vocab (43 GB of tables) vocab-sharded on
+   mesh (1, 4), four gloo ranks on the one card started by
+   ``repro_torch.distributed.spawn`` (10.75 GB of tables each, CUDA
+   tensors staged through pinned host memory for gloo), 8 steps of
+   ``launch.steps.make_dlrm_sparse_train_step`` on the serving phase's 8
+   batches; then the same 8 steps on mesh (1, 1), one NCCL rank holding
+   the whole tables (the unsharded path).  The kernels are built in this
+   process first; the ranks only load the library.  Checks each of the
+   four ranks' counts (set to 0 before its steps, read after): 8
+   ``embedding_bag_warp`` launches and none on the block route, 0 on the
+   one rank; the MLPs bit-identical and the losses equal across the four
+   ranks; their losses within rtol 1e-5 of the one rank's at step 1 and
+   1e-4 after; the rows batch 1 touched and their accumulator entries,
+   after step 1, each within rtol 1e-4, and every touched row after step
+   8 within 1e-3 in relative norm (the trajectories may part at the 1e-5
+   loss level, where rows with tiny, cancelling gradients move apart by
+   percents); a seeded sample of untouched rows unchanged bit for bit.
+   Prints steps/s (all 8 and after the first), each rank's peak device
+   memory, the all_reduce of a (512, 42, 128) pooled tensor (CUDA
+   events) and a ``{"sharded": ...}`` line.  Then the
    paper's characterization models (host numpy only): Table 9 and Table
    7 from ``core/dpp/simulator.py``, Fig. 1's power split of each
    workload, ``coordination.simulate`` (60 days, seed 3) and the
@@ -213,6 +234,17 @@ DATA_PATH_KERNELS = ("xor_decrypt", "dense_unpack_warp", "ragged_gather_vec",
 GENERAL_ROUTES = ("fused_transform", "dense_unpack", "ragged_gather")
 # the checkpoint phase: examples/torch/train_dlrm_e2e.py's own step count
 CKPT_STEPS = 200
+# the sharded DLRM step: dlrm-paper at its full 2,000,000-row vocab, vocab-
+# sharded over four gloo ranks on the one card, against one NCCL rank
+SHARDED_MESH = (1, 4)
+SHARDED_SEED = 5
+SHARDED_OPT = dict(warmup_steps=1)          # lr 3e-4; the tables move by lr * 10
+SHARDED_SAMPLE = 64           # untouched rows sampled per table and rank
+SHARDED_TIMEOUT_S = 400       # each spawn's join
+# losses of the four ranks against the one: float32 sums in another order
+SHARDED_LOSS_RTOL = (1e-5, 1e-4)   # step 1, steps 2-8
+SHARDED_ROW_TOL = dict(rtol=1e-4, atol=1e-6)    # touched rows after step 1
+SHARDED_NORM_RTOL = 1e-3      # touched rows after step 8, in relative norm
 # the paper's Table 9 (tests/test_simulator.py): DPP worker throughput and
 # workers per trainer of RM1-RM3 on C-v1, held within 8% (12% for wpt)
 TABLE9 = {
@@ -1709,6 +1741,239 @@ def _checkpoint_phase(torch):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+def _sharded_rank(rank, shape, batches, seed):
+    """One rank of the sharded DLRM phase (spawned): ``dlrm-paper`` at full
+    vocab on ``shape``, 8 steps of ``make_dlrm_sparse_train_step``.
+    Returns the step's launch counts, losses and times, the MLPs, the
+    touched rows and their accumulator entries in this rank's slice,
+    whether a sample of untouched rows kept its bits, the all_reduce time
+    of a pooled tensor, and peak device memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.dlrm_paper import CONFIG
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_dlrm_sparse_train_step
+    from repro_torch.optim import OptimizerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lib = build.BUILD_DIR / f"librepro_torch_{build.source_hash()}.so"
+    if not lib.exists():
+        raise RuntimeError(f"rank {rank}: {lib} not built: the parent builds before spawning")
+    mesh = make_mesh(shape, ("data", "model"), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = make_dlrm_sparse_train_step(CONFIG, mesh, BATCH,
+                                         opt_cfg=OptimizerConfig(**SHARDED_OPT), device="cuda")
+    params, opt = bundle.init_state(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    v, e = CONFIG.vocab_per_table, CONFIG.embed_dim
+    lo, hi = bundle.model.vocab_rows(mesh)
+    gen = torch.Generator(device=mesh.device).manual_seed(seed + 1)
+    sample = torch.randint(lo, hi, (CONFIG.num_tables, SHARDED_SAMPLE), generator=gen,
+                           device=mesh.device)
+    t_idx = torch.arange(CONFIG.num_tables, device=mesh.device)[:, None]
+    sample_rows = params["tables"][t_idx, sample - lo].clone()
+    local = [bundle.shard_batch(b) for b in batches]
+    torch.cuda.synchronize()
+
+    def touched(batch_list):
+        """The rows these batches touch (every occurrence, masked ones
+        too) in this rank's slice, by key t * V + id: the rows and their
+        accumulator entries."""
+        ids = torch.as_tensor(np.stack([b["sparse_ids"] for b in batch_list]))
+        ids = ids.to(mesh.device).long().clamp(0, v - 1)
+        keys = torch.unique(ids + t_idx.reshape(1, 1, -1, 1) * v)
+        keys = keys[(keys % v >= lo) & (keys % v < hi)]
+        flat = (keys // v) * (hi - lo) + keys % v - lo
+        return keys, {"keys": keys.cpu().numpy(),
+                      "rows": params["tables"].view(-1, e)[flat].cpu().numpy(),
+                      "acc": opt["acc"].view(-1)[flat].cpu().numpy()}
+
+    # the main path: counts set to 0 just before, read just after; each
+    # step timed to its loss on the host (a sync), the step-1 rows read
+    # between steps 1 and 2
+    build.LAUNCHES.reset()
+    losses, step_s = [], []
+    for i, b in enumerate(local):
+        t = time.perf_counter()
+        params, opt, metrics = bundle.fn(params, opt, b)
+        losses.append(metrics["loss"].item())
+        step_s.append(time.perf_counter() - t)
+        if i == 0:
+            _, first = touched(batches[:1])
+    launches = build.LAUNCHES.snapshot()
+    keys, last = touched(batches)
+    skeys = sample + t_idx * v
+    untouched = ~torch.isin(skeys, keys)
+    kept = bool(torch.equal(params["tables"][t_idx, sample - lo][untouched],
+                            sample_rows[untouched]))
+
+    allreduce_ms = None
+    if mesh.shape["model"] > 1:
+        x = torch.randn((BATCH, CONFIG.num_tables, e), device=mesh.device)
+        for _ in range(2):
+            mesh.all_reduce(x, "model")
+        times = []
+        for _ in range(10):
+            a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            mesh.all_reduce(x, "model")
+            z.record()
+            z.synchronize()
+            times.append(a.elapsed_time(z))
+        allreduce_ms = times
+    return {
+        "rank": rank, "coord": (mesh.coord("data"), mesh.coord("model")), "rows": (lo, hi),
+        "backend": mesh.backend, "launches": launches, "losses": losses, "step_s": step_s,
+        "steps_per_s": len(local) / sum(step_s),
+        "steps_per_s_after_first": (len(local) - 1) / sum(step_s[1:]), "init_s": init_s,
+        "mlp": {k: p.cpu().numpy() for k, p in params.items() if k != "tables"},
+        "touched_first": first, "touched": last, "untouched_checked": int(untouched.sum()),
+        "untouched_kept": kept, "allreduce_ms": allreduce_ms,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+
+
+def _sharded_phase(torch, batches, card):
+    """The sharded DLRM step: ``dlrm-paper`` at full width and full vocab
+    (42 x 2,000,000 x 128 float32 tables, 43 GB) on mesh (1, 4), four gloo
+    ranks on the one card (10.75 GB of tables each), for 8 steps on the
+    serving phase's 8 batches; then the same steps on mesh (1, 1), one
+    NCCL rank holding the whole tables (the unsharded path, no kernel).
+    Checks every rank's launches (8 ``embedding_bag_warp``, none of the
+    block route; 0 on the one rank), MLPs bit-identical across the four
+    ranks, the losses, the touched rows and their accumulator entries
+    against the one rank's, and a sample of untouched rows unchanged bit
+    for bit; returns the phase's record."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs.dlrm_paper import CONFIG
+    from repro_torch.distributed.spawn import spawn
+    from repro_torch.kernels import build
+
+    build.library()                  # the ranks load this build, never nvcc
+    torch.cuda.empty_cache()
+    n = len(batches)
+    if n != TRAIN_STEPS:
+        raise RuntimeError(f"the sharded phase takes the serving phase's {TRAIN_STEPS} "
+                           f"batches, got {n}")
+    tmp = tempfile.mkdtemp(prefix="sharded_")
+    try:
+        t = time.perf_counter()
+        four = spawn(_sharded_rank, 4, f"{tmp}/rdv4", "gloo",
+                     args=(SHARDED_MESH, batches, SHARDED_SEED), timeout_s=SHARDED_TIMEOUT_S)
+        four_s = time.perf_counter() - t
+        t = time.perf_counter()
+        (one,) = spawn(_sharded_rank, 1, f"{tmp}/rdv1", "nccl",
+                       args=((1, 1), batches, SHARDED_SEED), timeout_s=SHARDED_TIMEOUT_S)
+        one_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    for r in four:
+        if r["launches"].get("embedding_bag_warp", 0) != n or r["launches"].get(
+                "embedding_bag", 0) != 0:
+            raise RuntimeError(f"rank {r['rank']} launched {r['launches']}: expected "
+                               f"embedding_bag_warp once a step ({n}) and no block route")
+        if not r["untouched_kept"] or r["untouched_checked"] <= 0:
+            raise RuntimeError(f"rank {r['rank']}: untouched rows changed "
+                               f"({r['untouched_checked']} checked)")
+    if sum(one["launches"].values()) != 0:
+        raise RuntimeError(f"the one-rank run launched {one['launches']}: the unsharded "
+                           "path launches no kernel")
+    if not one["untouched_kept"]:
+        raise RuntimeError("the one-rank run changed untouched rows")
+    for r in four[1:]:
+        for k, a in four[0]["mlp"].items():
+            if a.tobytes() != r["mlp"][k].tobytes():
+                raise RuntimeError(f"MLP {k} differs between rank 0 and rank {r['rank']}")
+        if r["losses"] != four[0]["losses"]:
+            raise RuntimeError(f"rank {r['rank']} losses {r['losses']} != rank 0's")
+    got, want = np.array(four[0]["losses"]), np.array(one["losses"])
+    if not np.isfinite(got).all():
+        raise RuntimeError(f"non-finite losses {got}")
+    rel = np.abs(got - want) / np.abs(want)
+    if rel[0] > SHARDED_LOSS_RTOL[0] or (rel[1:] > SHARDED_LOSS_RTOL[1]).any():
+        raise RuntimeError(f"four-rank losses {got} vs one rank's {want}: rel {rel}")
+
+    def gathered(part):
+        """The four ranks' touched rows in key order, checked against the
+        one rank's key set; (keys, rows, acc, the one rank's rows, acc)."""
+        keys = np.concatenate([r[part]["keys"] for r in four])
+        order = np.argsort(keys)
+        if not np.array_equal(keys[order], one[part]["keys"]):
+            raise RuntimeError(f"{part}: the four ranks' touched rows are not the one rank's")
+        return (keys[order], np.concatenate([r[part]["rows"] for r in four])[order],
+                np.concatenate([r[part]["acc"] for r in four])[order],
+                one[part]["rows"], one[part]["acc"])
+
+    # after step 1, from one state: each element within rtol 1e-4
+    keys1, rows1, acc1, want_rows1, want_acc1 = gathered("touched_first")
+    if not (np.allclose(rows1, want_rows1, **SHARDED_ROW_TOL)
+            and np.allclose(acc1, want_acc1, rtol=SHARDED_ROW_TOL["rtol"], atol=0)):
+        raise RuntimeError(
+            f"step 1: touched rows differ by up to {np.abs(rows1 - want_rows1).max():.3e}, "
+            f"accumulator entries by {np.abs(acc1 - want_acc1).max():.3e}")
+    # after step 8: the trajectories have parted at the 1e-5 loss level, so
+    # rows whose gradients are tiny and cancel differ by percents; held in
+    # relative norm
+    keys, rows, acc, want_rows, want_acc = gathered("touched")
+    row_rel = float(np.linalg.norm(rows - want_rows) / np.linalg.norm(want_rows))
+    acc_rel = float(np.linalg.norm(acc - want_acc) / np.linalg.norm(want_acc))
+    if row_rel > SHARDED_NORM_RTOL or acc_rel > SHARDED_NORM_RTOL:
+        raise RuntimeError(f"step {n}: touched rows off by {row_rel:.3e}, accumulator "
+                           f"entries by {acc_rel:.3e} in relative norm")
+    over = ~np.isclose(rows, want_rows, **SHARDED_ROW_TOL)
+    row_diff = np.abs(rows - want_rows)
+    acc_diff = np.abs(acc - want_acc)
+    record = {
+        "config": CONFIG.name, "vocab_per_table": CONFIG.vocab_per_table, "batch": BATCH,
+        "steps": n,
+        "card": card,
+        "four": {"mesh": list(SHARDED_MESH), "backend": "gloo", "wall_s": four_s,
+                 "steps_per_s": [r["steps_per_s"] for r in four],
+                 "steps_per_s_after_first": [r["steps_per_s_after_first"] for r in four],
+                 "step_s": four[0]["step_s"], "init_s": [r["init_s"] for r in four],
+                 "max_memory_allocated": [r["max_memory_allocated"] for r in four],
+                 "launches": [r["launches"] for r in four],
+                 "allreduce_ms_pooled": four[0]["allreduce_ms"],
+                 "allreduce_ms_median": statistics.median(four[0]["allreduce_ms"]),
+                 "losses": four[0]["losses"]},
+        "one": {"mesh": [1, 1], "backend": "nccl", "wall_s": one_s,
+                "steps_per_s": one["steps_per_s"],
+                "steps_per_s_after_first": one["steps_per_s_after_first"], "step_s": one["step_s"],
+                "init_s": one["init_s"], "max_memory_allocated": one["max_memory_allocated"],
+                "launches": one["launches"], "losses": one["losses"]},
+        "touched_rows_step1": int(keys1.size), "touched_rows": int(keys.size),
+        "max_rel_loss_diff": float(rel.max()),
+        "step1_max_abs_row_diff": float(np.abs(rows1 - want_rows1).max()),
+        "step1_max_abs_acc_diff": float(np.abs(acc1 - want_acc1).max()),
+        "max_abs_row_diff": float(row_diff.max()), "max_abs_acc_diff": float(acc_diff.max()),
+        "row_rel_norm_diff": row_rel, "acc_rel_norm_diff": acc_rel,
+        "rows_over_rtol": int(over.any(axis=1).sum()),
+        "untouched_checked": [r["untouched_checked"] for r in four],
+    }
+    print(f"[sharded] {card}: four gloo ranks {record['four']['steps_per_s']} steps/s "
+          f"({record['four']['steps_per_s_after_first']} after the first step), one NCCL "
+          f"rank {one['steps_per_s']:.3f} ({one['steps_per_s_after_first']:.3f}); peak memory "
+          f"{[m / 1e9 for m in record['four']['max_memory_allocated']]} GB a rank, "
+          f"{one['max_memory_allocated'] / 1e9:.3f} GB one rank; all_reduce of the "
+          f"(512, 42, 128) pooled tensor {record['four']['allreduce_ms_median']:.3f} ms "
+          f"(median of 10, CUDA events); losses {got.tolist()} vs {want.tolist()} "
+          f"(max rel {rel.max():.3e}); step 1: {keys1.size} touched rows within rtol "
+          f"{SHARDED_ROW_TOL['rtol']:g}; step {n}: {keys.size} touched rows, relative norm "
+          f"{row_rel:.3e} (accumulator {acc_rel:.3e}), {record['rows_over_rtol']} rows past "
+          f"rtol {SHARDED_ROW_TOL['rtol']:g}; wall {four_s:.1f} + {one_s:.1f} s", flush=True)
+    return record
+
+
 def _characterization():
     """The paper's characterization models (host numpy), each once, held to
     the bands of ``tests/test_simulator.py`` and ``tests/test_extensions.py``."""
@@ -3001,6 +3266,9 @@ def main() -> int:
     t = time.perf_counter()
     print(json.dumps({"checkpoint": _checkpoint_phase(torch)}), flush=True)
     print(f"[phase] checkpoint and restart {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    print(json.dumps({"sharded": _sharded_phase(torch, batches, card)}), flush=True)
+    print(f"[phase] sharded DLRM step {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     print(json.dumps({"characterization": _characterization()}), flush=True)
     print(f"[phase] characterization models (host only) {time.perf_counter() - t:.1f} s",

@@ -23,6 +23,12 @@ bfloat16 leaves cross through their bits, so they come across exact.
 The caches are stacked on the layer axis in both packages (``{"k", "v"}``
 of the dense family, ``{"state", "conv_x", "conv_B", "conv_C"}`` of the
 SSM), so they cross leaf by leaf.
+
+On a mesh each rank holds its vocab slice of the tables
+(``models.dlrm.vocab_rows``): ``dlrm_shard_from_numpy`` cuts a reference
+state to a rank's slice, and ``dlrm_tables_for_mesh`` draws a rank's
+slice of fresh tables by fixed row blocks, so every mesh holds the same
+tables without any rank drawing them whole.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.schema import ColumnBatch, SparseColumn
+from repro_torch.models.dlrm import vocab_rows
 
 
 def column_batch_from_numpy(
@@ -126,6 +133,68 @@ def adamw_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
         "nu": _nest(state["nu"]),
         "step": np.asarray(int(state["step"]), np.int32),
     }
+
+
+TABLE_BLOCK_ROWS = 100_000   # the row blocks ``dlrm_tables_for_mesh`` draws by
+
+
+def _vocab_slice(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows (axis 1) of a (T, V, ...) table-shaped leaf."""
+    lo, hi = vocab_rows(t.shape[1], mesh)
+    return t[:, lo:hi].contiguous()
+
+
+def _shard_named(tree: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    return {k: _vocab_slice(v, mesh) if k == "tables" else v for k, v in tree.items()}
+
+
+def dlrm_shard_from_numpy(state: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """This rank's slice of the reference's DLRM state (numpy leaves):
+    ``{"params", "opt"}`` with ``opt`` the dense path's AdamW state
+    ``{"mu", "nu", "step"}`` or the sparse step's ``{"adam", "acc"}``.
+    Parameters and moments come by name (``DLRM.params()`` keys), float32
+    CPU tensors; the tables, their moments and the accumulator are cut to
+    the rank's rows (``models.dlrm.vocab_rows``), everything else whole.
+    Other top-level keys (``"step"``) pass through."""
+    def adamw(s):
+        s = adamw_state_from_numpy(s)
+        return {"mu": _shard_named(s["mu"], mesh), "nu": _shard_named(s["nu"], mesh),
+                "step": s["step"]}
+
+    out = dict(state)
+    out["params"] = _shard_named(dlrm_params_from_numpy(state["params"]), mesh)
+    opt = state["opt"]
+    if "adam" in opt:
+        out["opt"] = {"adam": adamw(opt["adam"]),
+                      "acc": _vocab_slice(torch.from_numpy(np.array(opt["acc"], np.float32)),
+                                          mesh)}
+    else:
+        out["opt"] = adamw(opt)
+    return out
+
+
+def dlrm_tables_for_mesh(cfg, mesh, seed: int = 0) -> torch.Tensor:
+    """This rank's (T, hi - lo, E) slice of freshly drawn DLRM tables
+    (normal, std 0.02), on the mesh's device.  Each table is drawn in
+    blocks of ``TABLE_BLOCK_ROWS`` rows, block k of table t from its own
+    generator on the device seeded from (seed, t, k), and the rank keeps
+    the rows of each block in its slice: every mesh holds the same
+    tables, and no rank draws (or holds on the host) more than the blocks
+    its rows lie in."""
+    v, e = cfg.vocab_per_table, cfg.embed_dim
+    lo, hi = vocab_rows(v, mesh)
+    dev = mesh.device
+    out = torch.empty((cfg.num_tables, hi - lo, e), dtype=cfg.param_dtype, device=dev)
+    gen = torch.Generator(device=dev)
+    for t in range(cfg.num_tables):
+        for k in range(lo // TABLE_BLOCK_ROWS, (hi - 1) // TABLE_BLOCK_ROWS + 1):
+            b0 = k * TABLE_BLOCK_ROWS
+            rows = min(TABLE_BLOCK_ROWS, v - b0)
+            gen.manual_seed(((seed * 1_000_003 + t) * 1_000_003 + k) % 2 ** 63)
+            block = torch.randn((rows, e), generator=gen, dtype=torch.float32, device=dev)
+            a, z = max(lo, b0), min(hi, b0 + rows)
+            out[t, a - lo:z - lo] = (0.02 * block[a - b0:z - b0]).to(out.dtype)
+    return out
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:

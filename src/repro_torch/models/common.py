@@ -2,9 +2,10 @@
 
 A port of the reference's ``repro.models.common``: the config dataclasses
 with torch dtypes in place of ``jnp`` dtypes, and ``ParamSpec`` trees
-(shape, dtype, initializer) from which a model builds its parameters.
-The reference's logical axes and ``partition_specs`` are left out: the
-port has no sharded LM yet.
+(shape, dtype, initializer, logical axes) from which a model builds its
+parameters, and ``partition_specs``, the spec tree of a ``ParamSpec``
+tree under a rule table on a mesh.  Only DLRM names its logical axes so
+far; the LM families' wait for their sharded steps.
 
 Initializers are the reference's (``_init_leaf``): ``zeros``, ``ones``,
 ``scaled`` (normal with std ``scale / sqrt(shape[0])``, drawn in float32
@@ -23,6 +24,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+
+from repro_torch.distributed.sharding import AxisRules, logical_to_spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +119,21 @@ class ParamSpec:
     dtype: Any = torch.bfloat16
     init: str = "normal"            # normal | zeros | ones | scaled
     scale: float = 1.0
+    logical: Optional[Tuple[Optional[str], ...]] = None   # one name a dim
+
+    def __post_init__(self):
+        if self.logical is not None and len(self.logical) != len(self.shape):
+            raise ValueError(f"logical axes {self.logical} for shape {self.shape}")
+
+
+def partition_specs(spec_tree: Any, rules: AxisRules, mesh) -> Any:
+    """The PartitionSpec of each ``ParamSpec`` leaf of a tree (nested
+    dicts) under ``rules`` on ``mesh``, shapes taken into account."""
+    if isinstance(spec_tree, dict):
+        return {k: partition_specs(v, rules, mesh) for k, v in spec_tree.items()}
+    if spec_tree.logical is None:
+        raise ValueError(f"ParamSpec {spec_tree.shape} names no logical axes")
+    return logical_to_spec(spec_tree.logical, rules, mesh, spec_tree.shape)
 
 
 def param_count(tree: Any) -> int:

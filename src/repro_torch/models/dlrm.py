@@ -21,6 +21,17 @@ device, so a CPU run and a CUDA run start from identical weights.  The
 initializers are the reference's (``repro.models.common``): "scaled"
 weights are normal with std 1/sqrt(fan_in), tables normal with std 0.02,
 biases zero.  JAX's PRNG cannot be matched; tests carry weights across.
+
+Model-parallel tables (``_vocab_shards``, ``pooled_embeddings_sharded``,
+``sparse_table_update_sharded``): each rank on a mesh's "model" axis
+holds rows [r V/n, (r+1) V/n) of every table, (T, V/n, E), and the ids,
+masks and d(pooled) are whole on every model rank.  A rank pools only the
+occurrences in its own rows, the partial sums are added over "model", and
+the update touches only its own rows: the reference's ``shard_map``
+semantics, with the rank's slice as the argument in place of the whole
+table.  When n does not divide V the unsharded forms run on whole tables,
+as in the reference.  On a CUDA tensor the rank's partial is one launch
+of the ``embedding_bag`` kernel (sum mode) over its (T V/n, E) rows.
 """
 from __future__ import annotations
 
@@ -32,6 +43,8 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve
+from repro_torch.kernels import ops
+from repro_torch.models.common import ParamSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +86,78 @@ class MLP(nn.Module):
             if not (self.last_linear and i == self.n - 1):
                 x = torch.relu(x)
         return x
+
+
+def vocab_shards(vocab: int, mesh) -> int:
+    """The number of vocab slices of a table on ``mesh``: the "model"
+    axis's size where it divides ``vocab``, else 1 (whole tables)."""
+    n = mesh.shape["model"]
+    return n if vocab % n == 0 else 1
+
+
+def vocab_rows(vocab: int, mesh) -> Tuple[int, int]:
+    """[lo, hi): the rows of each ``vocab``-row table this rank holds."""
+    n = vocab_shards(vocab, mesh)
+    v_loc = vocab // n
+    lo = mesh.coord("model") * v_loc if n > 1 else 0
+    return lo, lo + v_loc
+
+
+def _mlp_specs(dims, dtype) -> Dict[str, ParamSpec]:
+    specs = {}
+    for i, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
+        specs[f"w{i}"] = ParamSpec((din, dout), dtype, "scaled", logical=("embed", "mlp"))
+        specs[f"b{i}"] = ParamSpec((dout,), dtype, "zeros", logical=(None,))
+    return specs
+
+
+class _ModelSum(torch.autograd.Function):
+    """The sum of a partial over the mesh's "model" axis.  Backward is the
+    identity: every model rank computes the same loss from the summed
+    tensor, so each partial's gradient is the sum's gradient (a summing
+    backward would scale it by the axis size)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _BagSum(torch.autograd.Function):
+    """``ops.embedding_bag(table, ids, w, mode="sum")``: the kernel on a
+    CUDA tensor, the plain version on a CPU one.  Backward scatters
+    ``w * grad`` into a dense gradient of the table."""
+
+    @staticmethod
+    def forward(ctx, table, ids, w):
+        ctx.save_for_backward(ids, w)
+        ctx.rows = table.shape[0]
+        return ops.embedding_bag(table, ids, w, mode="sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, w = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        e = g.shape[-1]
+        grad = torch.zeros((ctx.rows, e), dtype=g.dtype, device=g.device)
+        grad.index_add_(0, ids.reshape(-1).long(), (g[:, None, :] * w[..., None]).reshape(-1, e))
+        return grad, None, None
+
+
+@torch.no_grad()
+def _rowwise_adagrad_(tables_flat: torch.Tensor, acc_flat: torch.Tensor, flat: torch.Tensor,
+                      rg: torch.Tensor, lr, eps: float) -> None:
+    """Row-wise AdaGrad in place on (R, E) rows and their (R,)
+    accumulator: every occurrence's mean squared gradient is added first
+    (duplicates included), then each occurrence moves its row by
+    -lr/sqrt(acc+eps) times its gradient."""
+    acc_flat.index_add_(0, flat, torch.mean(torch.square(rg), dim=-1))
+    scale = lr / torch.sqrt(acc_flat[flat] + eps)
+    tables_flat.index_add_(0, flat, (-scale[:, None] * rg).to(tables_flat.dtype))
 
 
 def bce_with_logits(logit: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
@@ -131,6 +216,19 @@ class DLRM(nn.Module):
                 val = std * torch.randn(p.shape, generator=gen, dtype=torch.float32)
             p.copy_(val.to(p.dtype))
 
+    def param_specs(self) -> Dict[str, Any]:
+        """The reference's spec tree with its logical axes: tables
+        ("expert", "vocab", None), MLP weights ("embed", "mlp"), biases
+        (None,)."""
+        c = self.cfg
+        n_pairs = (c.num_tables + 1) * c.num_tables // 2
+        return {
+            "tables": ParamSpec((c.num_tables, c.vocab_per_table, c.embed_dim),
+                                c.param_dtype, "normal", logical=("expert", "vocab", None)),
+            "bottom": _mlp_specs((c.num_dense,) + c.bottom_mlp, c.param_dtype),
+            "top": _mlp_specs((c.bottom_mlp[-1] + n_pairs,) + c.top_mlp, c.param_dtype),
+        }
+
     def params(self) -> Dict[str, torch.Tensor]:
         """The parameters by name, in sorted order (the reference's tree
         order, which ``optim.global_norm`` sums in)."""
@@ -186,7 +284,7 @@ class DLRM(nn.Module):
         return bce_with_logits(logit, batch["label"])
 
     @torch.no_grad()
-    def sparse_table_update(
+    def sparse_table_update_(
         self,
         tables: torch.Tensor,       # (T, V, E)
         acc: torch.Tensor,          # (T, V) row-wise AdaGrad accumulator
@@ -194,11 +292,11 @@ class DLRM(nn.Module):
         batch: Dict[str, torch.Tensor],
         lr: Union[float, torch.Tensor],
         eps: float = 1e-8,
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Row-wise AdaGrad on the touched rows only: d(pooled) expands to
-        per-row gradients, the accumulator adds each row's mean squared
-        gradient, and each occurrence moves its row by -lr/sqrt(acc+eps)
-        times its gradient.  Returns new (tables, acc); inputs are kept."""
+    ) -> None:
+        """Row-wise AdaGrad on the touched rows only, in place: d(pooled)
+        expands to per-row gradients, the accumulator adds each row's mean
+        squared gradient, and each occurrence moves its row by
+        -lr/sqrt(acc+eps) times its gradient."""
         c = self.cfg
         ids = batch["sparse_ids"].long().clamp(0, c.vocab_per_table - 1)
         mask = batch["sparse_mask"]
@@ -208,9 +306,85 @@ class DLRM(nn.Module):
         t = ids.shape[1]
         offs = torch.arange(t, device=ids.device)[None, :, None] * c.vocab_per_table
         flat = (ids + offs).reshape(-1)
-        acc_flat = acc.reshape(-1).clone()
-        acc_flat.index_add_(0, flat, torch.mean(torch.square(rg), dim=-1))
-        scale = lr / torch.sqrt(acc_flat[flat] + eps)
-        tables_flat = tables.reshape(-1, c.embed_dim).clone()
-        tables_flat.index_add_(0, flat, (-scale[:, None] * rg).to(tables.dtype))
-        return tables_flat.reshape(tables.shape), acc_flat.reshape(acc.shape)
+        _rowwise_adagrad_(tables.view(-1, c.embed_dim), acc.view(-1), flat, rg, lr, eps)
+
+    def sparse_table_update(self, tables, acc, dpooled, batch, lr, eps: float = 1e-8
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``sparse_table_update_`` on copies: returns new (tables, acc);
+        the inputs are kept."""
+        tables, acc = tables.clone(), acc.clone()
+        self.sparse_table_update_(tables, acc, dpooled, batch, lr, eps)
+        return tables, acc
+
+    # -- model-parallel tables (vocab-sharded over the mesh's "model" axis) --
+
+    def _vocab_shards(self, mesh) -> int:
+        return vocab_shards(self.cfg.vocab_per_table, mesh)
+
+    def vocab_rows(self, mesh) -> Tuple[int, int]:
+        """[lo, hi): the rows of every table this rank holds on ``mesh``."""
+        return vocab_rows(self.cfg.vocab_per_table, mesh)
+
+    def _local_ids(self, tables: torch.Tensor, batch, mesh):
+        """ids clipped to [0, V-1], then (this rank's row of each id, the
+        in-range mask); checks that ``tables`` is the rank's slice."""
+        c = self.cfg
+        lo, hi = self.vocab_rows(mesh)
+        if tables.shape[1] != hi - lo:
+            raise ValueError(f"tables {tuple(tables.shape)} are not this rank's "
+                             f"{hi - lo}-row slice on {mesh}")
+        ids = batch["sparse_ids"].long().clamp(0, c.vocab_per_table - 1)
+        local = ids - lo
+        return local, (local >= 0) & (local < hi - lo)
+
+    def pooled_embeddings_sharded(self, tables: torch.Tensor, batch: Dict[str, torch.Tensor],
+                                  mesh) -> torch.Tensor:
+        """(B, T, E) mean-pooled bags from this rank's (T, V/n, E) slice:
+        its in-range occurrences weighted by the mask, summed over the
+        "model" axis, divided by max(sum(mask), 1) over the whole mask.
+        Differentiable in ``tables``."""
+        if self._vocab_shards(mesh) == 1:
+            return self.pooled_embeddings(tables, batch)
+        c = self.cfg
+        local, sel = self._local_ids(tables, batch, mesh)
+        mask = batch["sparse_mask"]
+        b, t, l = local.shape
+        v_loc = tables.shape[1]
+        if t * v_loc >= 2 ** 31:
+            raise ValueError(f"{t} x {v_loc} rows exceed the kernel's int32 ids")
+        offs = torch.arange(t, device=local.device)[None, :, None] * v_loc
+        flat = (torch.where(sel, local, 0) + offs).to(torch.int32).reshape(b * t, l)
+        w = (mask * sel).to(tables.dtype).reshape(b * t, l)
+        part = _BagSum.apply(tables.reshape(-1, c.embed_dim), flat, w).reshape(b, t, c.embed_dim)
+        part = _ModelSum.apply(part, mesh)
+        denom = torch.maximum(mask.sum(dim=2), torch.ones((), device=mask.device))
+        return part / denom[..., None].to(part.dtype)
+
+    @torch.no_grad()
+    def sparse_table_update_sharded_(self, tables, acc, dpooled, batch, lr, mesh,
+                                     eps: float = 1e-8) -> None:
+        """``sparse_table_update_`` on this rank's (T, V/n, E) slice and
+        (T, V/n) accumulator, in place: only the occurrences in its rows."""
+        if self._vocab_shards(mesh) == 1:
+            self.sparse_table_update_(tables, acc, dpooled, batch, lr, eps)
+            return
+        c = self.cfg
+        local, sel = self._local_ids(tables, batch, mesh)
+        mask = batch["sparse_mask"]
+        b, t, l = local.shape
+        v_loc = tables.shape[1]
+        denom = torch.maximum(mask.sum(dim=2), torch.ones((), device=mask.device))
+        w = (mask / denom[..., None]).reshape(-1)
+        keep = sel.reshape(-1).nonzero().squeeze(1)             # occurrences (b, t, l)
+        bt = keep // l
+        flat = (local.reshape(-1)[keep] + (bt % t) * v_loc)
+        rg = dpooled.reshape(b * t, c.embed_dim)[bt] * w[keep][:, None]
+        _rowwise_adagrad_(tables.view(-1, c.embed_dim), acc.view(-1), flat, rg, lr, eps)
+
+    def sparse_table_update_sharded(self, tables, acc, dpooled, batch, lr, mesh,
+                                    eps: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``sparse_table_update_sharded_`` on copies: returns the rank's
+        new (tables, acc) slices; the inputs are kept."""
+        tables, acc = tables.clone(), acc.clone()
+        self.sparse_table_update_sharded_(tables, acc, dpooled, batch, lr, mesh, eps)
+        return tables, acc

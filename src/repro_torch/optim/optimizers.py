@@ -14,7 +14,7 @@ the AdamW math still runs in float32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -77,8 +77,13 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> Tuple[Tree, torch.Tensor]:
+    """Scale ``grads`` to a global norm of at most ``max_norm``.  ``norm``
+    is the caller's global norm where the tree is one rank's slices of a
+    sharded one (its own leaves cannot give it); else ``global_norm``."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(_f32(max_norm, norm) / torch.clamp(norm, min=1e-9), max=1.0)
     return {k: g * scale.to(g.dtype) for k, g in grads.items()}, norm
 
@@ -98,9 +103,11 @@ def adamw_update(
     grads: Tree,
     state: Dict[str, Any],
     cfg: OptimizerConfig,
+    norm: Optional[torch.Tensor] = None,
 ) -> Tuple[Tree, Dict[str, Any], torch.Tensor]:
-    """Returns (new_params, new_state, grad_norm); the inputs are kept."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    """Returns (new_params, new_state, grad_norm); the inputs are kept.
+    ``norm``: the global norm of a sharded tree (``clip_by_global_norm``)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm)
     step = state["step"] + 1
     lr = wsd_schedule(cfg, step)
     stepf = step.to(torch.float32)

@@ -20,24 +20,48 @@ layout and bytes (``repro_torch.checkpoint``), so a checkpoint crosses
 between the packages.  On the sparse path that is the MLPs and their
 AdamW state: the store's host tables are not saved, as in the reference.
 
-A port of the reference's ``repro.train.trainer`` for one device.  The
-model, the optimizer state and the step run on ``device`` (``cuda`` unless
-the caller asks for the CPU); the store's tables and bookkeeping stay on
-the host.  Not ported yet: the device mesh (``mesh``, ``rules``,
-``remesh``).
+A port of the reference's ``repro.train.trainer``.  The model, the
+optimizer state and the step run on ``device`` (``cuda`` unless the
+caller asks for the CPU); the store's tables and bookkeeping stay on the
+host.
+
+On a mesh (``mesh``, a ``launch.mesh.Mesh``; dense path only) every rank
+runs the loop: it holds its vocab slice of the tables
+(``models.dlrm.vocab_rows``) and of their AdamW moments, the MLPs whole,
+and its rows of each batch (split over the axes ``rules`` maps "batch"
+to).  The pooled bags come from ``DLRM.pooled_embeddings_sharded``, whose
+sum over "model" passes gradients through unchanged; the gradients are
+averaged over the batch axes, and the global-norm clip adds the tables'
+squares over "model" once and the replicated MLPs' once.  This is the
+reference's layout for its sparse step (``shard_map`` over the vocab);
+its ``TRAIN_RULES`` parameter layout (tables over "model" by table where
+that divides, MLPs FSDP over "data") is a layout XLA reshards around,
+and the port does not keep it.  ``init_state`` draws the one-device
+weights and slices them; ``load_state`` takes a rank's slices
+(``convert.dlrm_shard_from_numpy``); ``remesh(new_mesh, state)`` gathers
+the tables and moments and re-slices them for a new mesh over the same
+ranks.  A checkpoint holds whole tables in the reference's layout:
+gathered and written by rank 0, and read by every rank, which keeps its
+own rows, so it resumes on any mesh, on one device and in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Dict, Iterable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.convert import flatten, nest
+from repro_torch.device import resolve
+from repro_torch.distributed.sharding import TRAIN_RULES
+from repro_torch.launch.steps import batch_axes, batch_shardings, shard_batch
 from repro_torch.models import build_model
+from repro_torch.models.dlrm import DLRM, vocab_rows
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, counter, gauge
 from repro_torch.optim import OptimizerConfig, adamw_init, adamw_update, wsd_schedule
 
@@ -91,15 +115,31 @@ class Trainer:
         embedding_store: Optional[Any] = None,
         registry: Optional[MetricsRegistry] = None,
         device: Union[str, torch.device] = "cuda",
+        mesh: Optional[Any] = None,
+        rules=TRAIN_RULES,
     ):
         self.tracer = tracer
         self.model_cfg = model_cfg
         self.store = embedding_store
         # the tables live in the store's host tier on the sparse path, so
-        # the model holds only the dense/interaction MLPs there
+        # the model holds only the dense/interaction MLPs there; on a mesh
+        # the trainer holds the rank's slice of them beside the model
         self._sparse = embedding_store is not None
-        self.model = build_model(model_cfg, tables=not self._sparse, device=device)
+        self.mesh = mesh
+        self.rules = rules
+        if mesh is not None:
+            if self._sparse:
+                raise ValueError("Trainer(mesh=...) runs the dense path; the tiered "
+                                 "store's step runs on one device")
+            if resolve(device, "Trainer").type != mesh.device.type:
+                raise ValueError(f"device {device} but the mesh's ranks are on {mesh.device}")
+            device = mesh.device
+        self.model = build_model(model_cfg, tables=not self._sparse and mesh is None,
+                                 device=device)
         self.device = self.model.device
+        self.tables: Optional[torch.Tensor] = None
+        if mesh is not None:
+            self._place_tables()
         self.opt_cfg = opt_cfg or OptimizerConfig()
         self.cfg = trainer_cfg or TrainerConfig()
         self.ckpt = (
@@ -117,9 +157,9 @@ class Trainer:
 
     # -- step ------------------------------------------------------------
 
-    def _apply(self, params: Dict[str, torch.Tensor], grads, opt):
+    def _apply(self, params: Dict[str, torch.Tensor], grads, opt, norm=None):
         new_p, opt, gnorm = adamw_update(
-            {k: p.detach() for k, p in params.items()}, grads, opt, self.opt_cfg)
+            {k: p.detach() for k, p in params.items()}, grads, opt, self.opt_cfg, norm)
         with torch.no_grad():
             for k, p in params.items():
                 p.copy_(new_p[k])
@@ -131,6 +171,24 @@ class Trainer:
         grads = torch.autograd.grad(loss, list(params.values()))
         opt, gnorm = self._apply(params, dict(zip(params, grads)), opt)
         return opt, loss.detach(), gnorm
+
+    def _mesh_step(self, opt, batch: Dict[str, torch.Tensor], axes):
+        """The dense step on this rank's slices and rows (module docstring)."""
+        mesh = self.mesh
+        params = self._live_params()
+        pooled = self.model.pooled_embeddings_sharded(self.tables, batch, mesh)
+        loss = self.model.loss_from_pooled(pooled, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        n = math.prod(mesh.shape[a] for a in axes)
+        with torch.no_grad():
+            grads = {k: mesh.all_reduce(g, axes) / n for k, g in zip(params, grads)}
+            sq = {k: torch.sum(torch.square(g)) for k, g in grads.items()}
+            if self.model._vocab_shards(mesh) > 1:
+                sq["tables"] = mesh.all_reduce(sq["tables"], "model")
+            norm = torch.sqrt(sum(sq[k] for k in sorted(sq)))
+            loss = mesh.all_reduce(loss.detach(), axes) / n
+        opt, gnorm = self._apply(params, grads, opt, norm)
+        return opt, loss, gnorm
 
     def _sparse_step(self, opt, pooled: torch.Tensor, batch: Dict[str, torch.Tensor]):
         """MLP-only step for the tiered-embedding path: pooled bags come in
@@ -144,25 +202,53 @@ class Trainer:
         lr = wsd_schedule(self.opt_cfg, opt["step"])
         return opt, loss.detach(), gnorm, g_pooled, lr
 
+    def _place_tables(self) -> None:
+        """A (T, rows, E) parameter for this rank's slice of the tables."""
+        c = self.model_cfg
+        lo, hi = vocab_rows(c.vocab_per_table, self.mesh)
+        self.tables = torch.nn.Parameter(torch.empty(
+            (c.num_tables, hi - lo, c.embed_dim), dtype=c.param_dtype, device=self.device))
+
+    def _live_params(self) -> Dict[str, torch.Tensor]:
+        """The parameters the step differentiates, by name in sorted order
+        (on a mesh, the rank's table slice among them)."""
+        params = self.model.params()
+        if self.tables is not None:
+            params = dict(sorted({**params, "tables": self.tables}.items()))
+        return params
+
     def _params(self) -> Dict[str, torch.Tensor]:
-        return {k: p.detach() for k, p in self.model.params().items()}
+        return {k: p.detach() for k, p in self._live_params().items()}
 
     def init_state(self, seed: int = 0) -> Dict[str, Any]:
-        """Fresh weights from ``seed`` and a zero optimizer state."""
-        self.model.init_weights(seed)
-        params = self._params()
-        return {"params": params, "opt": adamw_init(params, self.opt_cfg), "step": 0}
+        """Fresh weights from ``seed`` and a zero optimizer state.  On a
+        mesh: the one-device weights (drawn whole on the host), sliced."""
+        if self.mesh is None:
+            self.model.init_weights(seed)
+            params = self._params()
+            return {"params": params, "opt": adamw_init(params, self.opt_cfg), "step": 0}
+        full = DLRM(self.model_cfg, seed=seed, device="cpu").params()
+        lo, hi = vocab_rows(self.model_cfg.vocab_per_table, self.mesh)
+        params = {k: p.detach()[:, lo:hi] if k == "tables" else p.detach()
+                  for k, p in full.items()}
+        return self.load_state({"params": params, "opt": adamw_init(params, self.opt_cfg),
+                                "step": 0})
 
     def load_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
-        """Copy ``state["params"]`` into the model and move the optimizer
-        state to the device; returns the state as the loop holds it."""
-        params = self.model.params()
+        """Copy ``state["params"]`` into the model (on a mesh, the rank's
+        slices) and move the optimizer state to the device; returns the
+        state as the loop holds it."""
+        params = self._live_params()
         if set(state["params"]) != set(params):
             raise ValueError(f"state params {sorted(state['params'])} != "
                              f"model params {sorted(params)}")
         with torch.no_grad():
             for k, p in params.items():
-                p.copy_(torch.as_tensor(state["params"][k]))
+                src = torch.as_tensor(state["params"][k])
+                if src.shape != p.shape:
+                    raise ValueError(f"state param {k} {tuple(src.shape)} != "
+                                     f"{tuple(p.shape)} on this rank")
+                p.copy_(src)
         dev = self.device
         opt = state["opt"]
         opt = {"mu": {k: v.to(dev) for k, v in opt["mu"].items()},
@@ -181,22 +267,74 @@ class Trainer:
 
     def maybe_restore(self, state: Dict[str, Any]) -> Dict[str, Any]:
         """The newest complete checkpoint, loaded into the model and onto
-        the device, if the directory holds one; else ``state``."""
+        the device, if the directory holds one; else ``state``.  On a mesh
+        every rank reads the whole tables and keeps its rows."""
         if self.ckpt and self.ckpt.latest_step() is not None:
-            step, restored = self.ckpt.restore(
-                self.checkpoint_tree(state["params"], state["opt"])
-            )
+            params, opt = state["params"], state["opt"]
+            if self.mesh is not None:
+                params, opt = self._whole(params, opt, shapes_only=True)
+            step, restored = self.ckpt.restore(self.checkpoint_tree(params, opt))
             opt = restored["opt"]
-            return self.load_state({
-                "params": flatten(restored["params"]),
-                "opt": {"mu": flatten(opt["mu"]), "nu": flatten(opt["nu"]),
-                        "step": opt["step"]},
-                "step": step,
-            })
+            params = flatten(restored["params"])
+            opt = {"mu": flatten(opt["mu"]), "nu": flatten(opt["nu"]), "step": opt["step"]}
+            if self.mesh is not None:
+                params, opt = self._slice(params, opt)
+            return self.load_state({"params": params, "opt": opt, "step": step})
         return state
 
     def _save(self, step: int, opt: Dict[str, Any]) -> None:
-        self.ckpt.save(step, self.checkpoint_tree(self._params(), opt))
+        params = self._params()
+        if self.mesh is None:
+            self.ckpt.save(step, self.checkpoint_tree(params, opt))
+            return
+        params, opt = self._whole(params, opt)
+        if dist.get_rank() == 0:
+            self.ckpt.save(step, self.checkpoint_tree(params, opt))
+        self.mesh.barrier()
+
+    # -- the mesh ------------------------------------------------------------
+
+    @staticmethod
+    def _map_tables(params, opt, fn):
+        """(params, opt) with ``fn`` applied to the tables and their moments."""
+        def on(tree):
+            return {k: fn(v) if k == "tables" else v for k, v in tree.items()}
+
+        return on(params), {"mu": on(opt["mu"]), "nu": on(opt["nu"]), "step": opt["step"]}
+
+    def _whole(self, params, opt, shapes_only: bool = False):
+        """(params, opt) with the tables and their moments gathered whole
+        over "model" (``shapes_only``: empty stand-ins of the whole shapes,
+        for a checkpoint template)."""
+        n = self.model._vocab_shards(self.mesh)
+
+        def whole(t):
+            if n == 1:
+                return t
+            if shapes_only:
+                return torch.empty((t.shape[0], t.shape[1] * n, *t.shape[2:]), dtype=t.dtype,
+                                   device="meta")
+            return self.mesh.all_gather(t, "model", dim=1)
+
+        return self._map_tables(params, opt, whole)
+
+    def _slice(self, params, opt):
+        """(params, opt) with whole tables and moments cut to this rank's
+        rows."""
+        lo, hi = vocab_rows(self.model_cfg.vocab_per_table, self.mesh)
+        return self._map_tables(params, opt, lambda t: t[:, lo:hi].contiguous())
+
+    def remesh(self, new_mesh, state: Dict[str, Any]) -> Dict[str, Any]:
+        """Elastic scaling: move to ``new_mesh`` (over the same ranks) and
+        return ``state`` (as ``fit`` returns it) re-sliced for it; the
+        tables and their moments are gathered over the old mesh first."""
+        if self.mesh is None or new_mesh.device != self.device:
+            raise ValueError("remesh moves a mesh trainer to another mesh of its ranks' devices")
+        params, opt = self._whole(state["params"], state["opt"])
+        self.mesh = new_mesh
+        self._place_tables()
+        params, opt = self._slice(params, opt)
+        return self.load_state({"params": params, "opt": opt, "step": state["step"]})
 
     # -- loop -----------------------------------------------------------------
 
@@ -242,6 +380,12 @@ class Trainer:
                 self.store.apply_sparse_update(
                     dpooled.cpu().numpy(), ids, smask, lr=float(lr)
                 )
+            elif self.mesh is not None:
+                te = t1
+                specs = batch_shardings({k: np.shape(v) for k, v in batch.items()},
+                                        self.rules, self.mesh)
+                opt, loss, gnorm = self._mesh_step(
+                    opt, shard_batch(batch, specs, self.mesh), batch_axes(specs))
             else:
                 te = t1
                 db = {k: self._to_device(v) for k, v in batch.items()}
