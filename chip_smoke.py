@@ -54,7 +54,16 @@
    tenant and no general route); a second tenant served wholly from a
    shared ``TensorCache`` with no launch at all; and the traced two-tenant
    ``obs.smoke`` run on the card, its artifact passing
-   ``obs.report --check``.  Prints a ``{"service": ...}`` line.
+   ``obs.report --check``.  Prints a ``{"service": ...}`` line.  Then the
+   invariant gate and sanitizers (``_sanitizer_phase``,
+   ``repro_torch.analysis``): the static gate clean over its 13 rules with
+   the empty ``scripts/analysis_baseline_torch.txt``; the same full-width
+   session, and the service's two tenants, each run in turns
+   uninstrumented and built and run inside the lock-order sanitizer and
+   the lockset race detector (no cycle, no race, the numpy engines' batches, every
+   data-path kernel launched in the window and no general route); and the
+   interleaving explorer exhausting every control-plane scenario with
+   ``device="cuda"``.  Prints a ``{"sanitizers": ...}`` line.
 5. The trainer path: with the launch counts set to 0, serves the
    ``dlrm-paper`` session with its one cut (vocab 200,000 per table instead
    of 2,000,000: the store's host tier is numpy on the host) and trains 8
@@ -1071,6 +1080,146 @@ def _service_phase(torch, ref_digests, single):
                          "bytes_stored": tstats.bytes_stored},
         "report": report,
     }
+
+
+def _sanitized(run):
+    """``run()`` under the port's lock-order sanitizer and lockset race
+    detector over its nine core threaded classes: the locks and objects
+    ``run`` builds are tracked.  Returns its result, seconds, the lock
+    graph and the detector."""
+    from repro_torch.analysis import lockdep, racedep, sched
+
+    files = sched._REPO_LOCK_FILES + ("embedding_cache.py",)
+    with lockdep.patched(name_filter=lambda s: s.startswith(files)) as graph:
+        with racedep.instrument(graph, classes=racedep.core_classes()) as det:
+            out, seconds = run()
+    return out, seconds, graph, det
+
+
+def _sanitizer_phase(torch, ref_digests, device="cuda"):
+    """The port's invariant gate and runtime sanitizers (``repro_torch.analysis``)
+    around the data path on the card.
+
+    (a) The static gate over the 13 rules with the empty baseline: no
+    finding.  (b) The full-width ``dlrm-paper`` session of the serving path
+    (``dlrm_dpp_batches``, torch engines), built and run inside the lock-order
+    sanitizer and the race detector: no race, no lock-order cycle, the
+    numpy engines' batches (``ref_digests``), every data-path kernel
+    launched in the window and no general route.  (c) The service phase's
+    two tenants over the shared stripe cache through ``DPPService.run_all``,
+    with the same three checks.  (b) and (c) each run four times in turns,
+    uninstrumented, instrumented, instrumented, uninstrumented, for the
+    instrumentation's cost; every run's batches are the numpy engines'.  (d) The interleaving explorer
+    on every control-plane scenario on ``device``: each passes every
+    schedule and is exhausted.  Returns the phase's record."""
+    from repro_torch.analysis import all_rules, load_baseline, run_checks, sched
+    from repro_torch.configs.dlrm_paper import CONFIG
+    from repro_torch.core.dpp import DPPService
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import dlrm_dpp_batches, dlrm_dpp_warehouse
+
+    root = Path(__file__).resolve().parent
+    t = time.perf_counter()
+    new, known = run_checks(root, baseline=load_baseline(
+        root / "scripts" / "analysis_baseline_torch.txt"))
+    if new or known:
+        raise RuntimeError("the invariant gate found " + "; ".join(
+            f.render() for f in new + known))
+    print(f"[sanitizers] (a) static gate: 0 new, 0 baselined over {len(all_rules())} rules "
+          f"in {time.perf_counter() - t:.3f} s", flush=True)
+
+    engines = dict(device=device, engine="torch", decode_engine="torch")
+    tenants = ("tenant_a", "tenant_b")
+
+    def session():
+        """Setup and serve to the last batch (as ``_serve`` times it: the
+        generator's end then waits out one 5 s poll, timed by neither)."""
+        t0 = time.perf_counter()
+        batches, sess = dlrm_dpp_batches(CONFIG, BATCH, **engines)
+        out, t_last = [], t0
+        for b in batches:
+            out.append(b)
+            t_last = time.perf_counter()
+        torch.cuda.synchronize()
+        if sess.state != "COMPLETED":
+            raise RuntimeError(f"sanitizer-phase session ended {sess.state}")
+        return {"session": out}, t_last - t0
+
+    def service():
+        t0 = time.perf_counter()
+        wh, spec = dlrm_dpp_warehouse(CONFIG, BATCH)
+        svc = DPPService(wh)
+        for name in tenants:
+            svc.create_session(name, spec, n_workers=2, auto_scale=False, **engines)
+        results = svc.run_all(timeout_s=300)
+        torch.cuda.synchronize()
+        if svc.session_errors:
+            raise RuntimeError(f"sanitizer-phase tenants failed: {svc.session_errors}")
+        for name in tenants:
+            if svc.sessions[name].state != "COMPLETED":
+                raise RuntimeError(f"sanitizer-phase tenant {name} ended "
+                                   f"{svc.sessions[name].state}")
+        return results, time.perf_counter() - t0
+
+    record = {"rules": len(all_rules()), "new": 0, "baselined": 0}
+    for label, run in (("session", session), ("service", service)):
+        seconds = {"plain": [], "sanitized": []}
+        for mode in ("plain", "sanitized", "sanitized", "plain"):     # in turns
+            build.LAUNCHES.reset()
+            if mode == "plain":
+                out, secs = run()
+            else:
+                out, secs, graph, det = _sanitized(run)
+            launches = build.LAUNCHES.snapshot()
+            seconds[mode].append(secs)
+            for name, got in out.items():
+                if sorted(map(_digest, got)) != ref_digests:
+                    raise RuntimeError(f"the {mode} {label}'s {name} batches differ from "
+                                       "the numpy engines'")
+            if mode == "plain":
+                continue
+            if det.races():
+                raise RuntimeError(f"the race detector found races in the {label}:\n"
+                                   + det.report())
+            if graph.cycles():
+                raise RuntimeError(f"lockdep found lock-order cycles in the {label}:\n"
+                                   + graph.report())
+            for name in DATA_PATH_KERNELS:
+                if launches.get(name, 0) <= 0:
+                    raise RuntimeError(f"the sanitized {label} never launched {name}")
+            for general in GENERAL_ROUTES:
+                if launches.get(general, 0) != 0:
+                    raise RuntimeError(f"the sanitized {label} launched {general}'s "
+                                       f"general route {launches[general]} times")
+            sanitized_launches = launches
+        launches = sanitized_launches
+        seen, shared = det.observed()
+        record[label] = {
+            "plain_s": seconds["plain"], "sanitized_s": seconds["sanitized"],
+            "lock_sites": len(graph.nodes()), "lock_edges": len(graph.edges()),
+            "attrs_observed": seen, "attrs_shared": shared, "races": 0, "cycles": 0,
+            "batches": sum(len(v) for v in out.values()), "launches": launches,
+        }
+        print(f"[sanitizers] ({'b' if label == 'session' else 'c'}) {label}, in turns: "
+              f"uninstrumented {', '.join(f'{x:.3f}' for x in seconds['plain'])} s, "
+              f"instrumented {', '.join(f'{x:.3f}' for x in seconds['sanitized'])} s; "
+              f"lockdep tracked {len(graph.nodes())} lock sites, {len(graph.edges())} "
+              f"ordered edges, 0 cycles; racedep saw {shared} shared (object, attribute) "
+              f"pairs of {seen} observed, 0 races; {record[label]['batches']} batches a run "
+              f"byte-identical to the numpy engines; launches {launches}", flush=True)
+
+    record["explorer"] = {}
+    for scenario in sched.scenarios(device):
+        t = time.perf_counter()
+        res = sched.explore(scenario)
+        if not res.exhausted:
+            raise RuntimeError(f"the explorer was cut short on '{res.scenario}': {res}")
+        record["explorer"][res.scenario] = {"schedules": res.schedules,
+                                            "pruned": res.pruned,
+                                            "seconds": time.perf_counter() - t}
+        print(f"[sanitizers] (d) explorer on {device}: {res.scenario}: {res.schedules} "
+              f"schedules, {res.pruned} pruned, exhausted", flush=True)
+    return record
 
 
 def _bits_equal(torch, a, b) -> bool:
@@ -3256,6 +3405,11 @@ def main() -> int:
                              session.worker_metrics())
     print(json.dumps({"service": service}), flush=True)
     print(f"[phase] multi-tenant service {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = time.perf_counter()
+    sanitizers = _sanitizer_phase(torch, sorted(map(_digest, ref_batches)))
+    print(json.dumps({"sanitizers": sanitizers}), flush=True)
+    print(f"[phase] invariant gate and sanitizers {time.perf_counter() - t:.1f} s", flush=True)
 
     t = time.perf_counter()
     train_launches, bag_operands, step_bags = _train_path(torch)

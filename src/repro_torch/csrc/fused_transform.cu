@@ -34,6 +34,7 @@
 
 namespace {
 
+constexpr int OP_IDENTITY = 0;      // the switch's default: the id unchanged
 constexpr int OP_SIGRID_HASH = 1;
 constexpr int OP_POSITIVE_MODULUS = 2;
 constexpr int OP_CLAMP = 3;

@@ -418,6 +418,27 @@ def test_fused_transform_ragged_rows_match_plain(cuda, rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1024, 6])
+def test_fused_transform_identity_lanes_match_plain(cuda, rows):
+    """A wave mixing OP_IDENTITY lanes with real ops (the reference's
+    identity-lane differential): both routes bit-exact against the plain
+    version (rows 6: the general route alone), the identity columns
+    unchanged."""
+    rng = np.random.default_rng(rows)
+    codes = np.array([ref.OP_IDENTITY, ref.OP_SIGRID_HASH, ref.OP_IDENTITY,
+                      ref.OP_POSITIVE_MODULUS, ref.OP_IDENTITY, ref.OP_CLAMP,
+                      ref.OP_IDENTITY, ref.OP_BUCKETIZE])
+    mat, c, p0, p1, brd = _wave(rng, len(codes), rows, codes)
+    assert _ft_both_routes(cuda, mat, c, p0, p1, brd) == ("vec" if rows % 4 == 0 else "scalar")
+    m = torch.from_numpy(mat).to(cuda)
+    got = kft.fused_transform(m, *(torch.from_numpy(x).to(cuda) for x in (c, p0, p1, brd)),
+                              features_major=True).cpu().numpy()
+    lanes = codes == ref.OP_IDENTITY
+    np.testing.assert_array_equal(got[lanes], mat[lanes])
+    assert not np.array_equal(got[~lanes], mat[~lanes])
+
+
+@pytest.mark.cuda
 def test_fused_transform_vec_route_counts_unsorted_and_nan_borders(cuda):
     """BUCKETIZE_F border rows the engine never fuses, in a features-major
     tile the vec route takes: unsorted, tied, signed zeros, +inf inside the

@@ -215,6 +215,45 @@ def test_mixed_wave_ragged_rows_engine():
     assert te.stats.kernel_launches == 4       # 3 fused waves + 1 fallback
 
 
+def test_identity_lanes_pass_through_plain_version():
+    """OP_IDENTITY differential (the reference's
+    test_identity_lanes_pass_through_kernel): a wave mixing identity lanes
+    with real ops leaves the identity columns bit-identical to the input.
+    The port's plain ``fused_transform``, its dispatch (the op-code-static
+    form, in both tile layouts) and the reference's Pallas kernel
+    (interpret mode) and jnp oracle give the same bits."""
+    from repro.kernels import ref as R
+    from repro.kernels.ops import fused_transform as K
+    from repro_torch.kernels import ops, ref
+
+    assert ref.OP_IDENTITY == R.OP_IDENTITY == 0
+    rng = np.random.default_rng(7)
+    rows, feats = 6, 8
+    ids = rng.integers(-2 ** 31, 2 ** 31, size=(rows, feats)).astype(np.int32)
+    op_codes = np.array(
+        [ref.OP_IDENTITY, ref.OP_SIGRID_HASH, ref.OP_IDENTITY, ref.OP_POSITIVE_MODULUS,
+         ref.OP_IDENTITY, ref.OP_CLAMP, ref.OP_IDENTITY, ref.OP_BUCKETIZE],
+        dtype=np.int32,
+    )
+    param0 = np.array([0, 7, 0, 0, 0, -50, 0, -100], dtype=np.int32)
+    param1 = np.array([0, 33, 0, 13, 0, 50, 0, 10], dtype=np.int32)
+    want = np.asarray(K(ids, op_codes, param0, param1, use_pallas=True))
+    np.testing.assert_array_equal(
+        np.asarray(R.fused_transform(ids, op_codes, param0, param1)), want)
+    t_ids, t_codes, t_p0, t_p1 = map(torch.from_numpy, (ids, op_codes, param0, param1))
+    got = {
+        "plain": ref.fused_transform(t_ids, t_codes, t_p0, t_p1),
+        "dispatch": ops.fused_transform(t_ids, t_codes, t_p0, t_p1),
+        "features-major": ops.fused_transform(t_ids.T.contiguous(), t_codes, t_p0, t_p1,
+                                              features_major=True).T,
+    }
+    for name, g in got.items():
+        np.testing.assert_array_equal(g.numpy(), want, err_msg=name)
+    identity_lanes = op_codes == ref.OP_IDENTITY
+    np.testing.assert_array_equal(want[:, identity_lanes], ids[:, identity_lanes])
+    assert not np.array_equal(want[:, ~identity_lanes], ids[:, ~identity_lanes])
+
+
 def test_default_dlrm_pipeline_engines():
     """The production-shaped DAG end to end, generated features included,
     on a partition the reference generates."""
