@@ -171,10 +171,34 @@
    route), both routes timed beside the bound and in turns.  Then a
    depth-2, full-width model from one set of weights on the card and on
    the CPU (prompt 512).
-9. Prints one JSON line with every kernel's numbers (fifteen: the nine
+9. The LM families (``_lm_families_path``): with the earlier models
+   freed and the launch counts set to 0, serves ``deepseek-v2-236b`` (MLA
+   + MoE) at full width with its depth cut from 60 layers to 6 (24.9 B
+   parameters, 49.8 GB, drawn on the card from seed 0) through the same
+   ``serve`` (batch 4, prompt 1024, 32 decode steps, cache 128); checks
+   6 launches of ``flash_attention``'s FMA route (MLA attends at D = 128
+   + 64 = 192 with v padded from 128), none of the tensor-core route and
+   nothing else, the MoE capacity (192 slots an expert at 4,096 tokens)
+   and finite logits; prints ``prefill_s``, ``decode_tok_per_s`` and the
+   peak; then a 4-slot ``BatchingServer``.  ``flash_attention`` at D =
+   192 against its plain version at the q/k/v of layers 0 and 5 (bf16
+   against the plain version in float32, float32 operands at the float32
+   tolerance, the padded columns 0) and on adversarial inputs (D 129, 160,
+   192 x S 1, 63, 65, 1000 x both types, groups 1 and 4, T != S, the
+   model's views), timed beside its bound and SDPA.  Then a depth-1,
+   full-width ``deepseek-v2-236b`` on the card against the CPU in float32
+   and bf16 (routing recorded on both; every flip at a top-k margin under
+   1e-5).  Then ``codeqwen1.5-7b`` and ``llava-next-mistral-7b`` whole,
+   ``kimi-k2-1t-a32b`` at 1 layer, ``qwen2-72b`` and ``llama3-405b`` at
+   4, all at full width: a prefill (1024 tokens; llava 3072, its 2,880
+   image rows among them) and 8 decode steps at batch 1, one
+   ``flash_attention_sm90`` launch a layer, finite logits.  Prints a
+   ``{"lm_families": ...}`` line.
+10. Prints one JSON line with every kernel's numbers (sixteen: the nine
    TPU kernels' ports, ``fused_transform``, ``dense_unpack``,
    ``ragged_gather``, ``embedding_bag``, flash attention and the SSD scan
-   by both of their routes), the card's line,
+   by both of their routes, and flash attention's FMA route again at
+   MLA's D = 192), the card's line,
    and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -236,6 +260,21 @@ SSM_CAPTURE_LAYERS = (0, 63)
 # rounds m to bf16 before m.x, 2^-9 relative a term, and y to bf16).  The
 # final state is float32 in both types and held to the float32 bound.
 SSD_TOL = {"float32": (5e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}
+# the LM families phase: deepseek-v2-236b at full width with its depth cut
+# from 60 layers to 6 (6 x 7.94 GB of bf16 layers and 2.1 GB of
+# embeddings fit one card), served with the LM path's flags; MLA's
+# prefill attends at D = 128 + 64 with v padded from 128
+FAM_LAYERS = 6
+FAM_CAPTURE_LAYERS = (0, 5)
+FAM_CAPACITY = 192            # slots an expert: 4,096 tokens x top 6 x 1.25 / 160
+MLA_QK_DIM, MLA_V_DIM = 192, 128
+FAM_CPU_DECODE = 3            # decode steps of the depth-1 card-vs-CPU check
+ROUTE_FLIP_MARGIN = 1e-5      # a routing flip between card and CPU must sit below this
+# the five other configs at full width: (arch, layers kept or None for all
+# of them, prompt); llava's prompt holds its 2,880 image rows
+FAM_OTHERS = (("codeqwen1.5-7b", None, 1024), ("llava-next-mistral-7b", None, 3072),
+              ("kimi-k2-1t-a32b", 1, 1024), ("qwen2-72b", 4, 1024), ("llama3-405b", 4, 1024))
+FAM_OTHER_DECODE = 8
 # the data-path kernels every DPP session launches on the card, and the
 # general routes of three of them, which no engine operand takes
 DATA_PATH_KERNELS = ("xor_decrypt", "dense_unpack_warp", "ragged_gather_vec",
@@ -3312,6 +3351,447 @@ def _ssm_card_vs_cpu(torch):
     return result
 
 
+def _free(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_families_path(torch):
+    """Full-width deepseek-v2-236b (MLA + MoE), its depth cut to
+    ``FAM_LAYERS`` of 60, through the port's serve path on the card with
+    the launch counts set to 0 just before and read just after; the
+    attention operands of layers 0 and 5 from another prefill; then the
+    full-width 4-slot BatchingServer.  Returns the launches, the captured
+    operands and the path's numbers."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.deepseek_v2_236b import CONFIG
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serving import BatchingServer, Request, ServerConfig
+
+    _free(torch)
+    held = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(CONFIG, num_layers=FAM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = build_model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"[families] {cfg.name} at full width, {FAM_LAYERS} of {CONFIG.num_layers} layers: "
+          f"{n_params} parameters ({param_bytes / 1e9:.3f} GB) drawn on the card in "
+          f"{init_s:.2f} s, peak {init_peak / 1e9:.3f} GB ({held / 1e9:.3f} GB held before)",
+          flush=True)
+    t = time.perf_counter()
+    serve.serve(model, batch=LM_BATCH, prompt_len=LM_PROMPT, decode_steps=2,
+                cache_len=LM_CACHE)
+    print(f"[families] first call (prefill + 2 decode steps) {time.perf_counter() - t:.2f} s",
+          flush=True)
+
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.reset()
+    out = serve.serve(model, batch=LM_BATCH, prompt_len=LM_PROMPT, decode_steps=LM_DECODE,
+                      cache_len=LM_CACHE)
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[families] main path launches {launches}", flush=True)
+    # MLA's D = 192 operands take the FMA route in every layer's prefill,
+    # the tensor-core route not once, and no other kernel runs
+    others = {k: n for k, n in launches.items() if n and k != "flash_attention"}
+    if launches.get("flash_attention", 0) != FAM_LAYERS or others:
+        raise RuntimeError(f"the prefill launched flash_attention "
+                           f"{launches.get('flash_attention', 0)} times and {others}, "
+                           f"expected {FAM_LAYERS} and nothing else")
+    if not torch.isfinite(out["logits"].float()).all():
+        raise RuntimeError("non-finite logits")
+    tokens = out["tokens"]
+    if (tuple(tokens.shape) != (LM_BATCH, 1 + LM_DECODE) or int(tokens.min()) < 0
+            or int(tokens.max()) >= cfg.vocab_size):
+        raise RuntimeError(f"bad sampled tokens {tuple(tokens.shape)}")
+    cap = moe_lib._capacity(LM_BATCH * LM_PROMPT, cfg.moe)
+    if cap != FAM_CAPACITY:
+        raise RuntimeError(f"MoE capacity {cap} at {LM_BATCH * LM_PROMPT} tokens, expected "
+                           f"{FAM_CAPACITY}")
+    print(f"[families] serve: prefill_s={out['prefill_s']:.6f} decode_s={out['decode_s']:.6f} "
+          f"decode_tok_per_s={out['decode_tok_per_s']:.3f} peak device memory "
+          f"{peak / 1e9:.3f} GB, finite logits, MoE capacity {cap} slots an expert at "
+          f"{LM_BATCH * LM_PROMPT} tokens (top {cfg.moe.top_k} of {cfg.moe.num_experts}), "
+          f"sampled tokens[0] {tokens[0, :16].tolist()}", flush=True)
+
+    # the attention operands of layers 0 and 5, from another prefill
+    captured = []
+    original = ops.flash_attention
+
+    def capture(q, k, v, **kw):
+        keep = len(captured) in FAM_CAPTURE_LAYERS
+        captured.append((q.clone(), k.clone(), v.clone(), kw) if keep else None)
+        return original(q, k, v, **kw)
+
+    ops.flash_attention = capture
+    try:
+        serve.serve(model, batch=LM_BATCH, prompt_len=LM_PROMPT, decode_steps=0,
+                    cache_len=LM_CACHE)
+    finally:
+        ops.flash_attention = original
+    operands = {i: captured[i] for i in FAM_CAPTURE_LAYERS}
+    numbers = {
+        "config": cfg.name, "layers": FAM_LAYERS, "published_layers": CONFIG.num_layers,
+        "parameters": n_params, "param_bytes": param_bytes, "init_s": init_s,
+        "init_peak_device_bytes": init_peak, "batch": LM_BATCH, "prompt_len": LM_PROMPT,
+        "decode_steps": LM_DECODE, "cache_len": LM_CACHE, "prefill_s": out["prefill_s"],
+        "decode_s": out["decode_s"], "decode_tok_per_s": out["decode_tok_per_s"],
+        "launches": launches, "peak_device_bytes": peak, "moe_capacity": cap,
+        "sampled_tokens_0": tokens[0, :16].tolist(),
+    }
+    del captured, model, out
+    _free(torch)
+
+    # the full-width BatchingServer: 4 slots, 4 requests
+    t = time.perf_counter()
+    server = BatchingServer(cfg, ServerConfig(slots=4, cache_len=LM_CACHE), seed=0,
+                            device="cuda")
+    print(f"[families] BatchingServer built in {time.perf_counter() - t:.2f} s", flush=True)
+    rng = np.random.default_rng(1)
+    for rid in range(4):
+        server.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, 16)
+                              .astype(np.int32), max_new_tokens=8))
+    t0 = time.perf_counter()
+    done = server.run()
+    server_s = time.perf_counter() - t0
+    if len(done) != 4 or any(len(r.output) != 8 for r in done) or any(
+            not 0 <= tok < cfg.vocab_size for r in done for tok in r.output):
+        raise RuntimeError(f"BatchingServer finished {[len(r.output) for r in done]}")
+    report = BatchingServer.latency_report(done)
+    print(f"[families] BatchingServer: 4 requests in {server_s:.3f} s, latency_report "
+          f"{json.dumps(report)}", flush=True)
+    numbers["server"] = {"slots": 4, "requests": 4, "prompt_len": 16, "new_tokens": 8,
+                         "run_s": server_s, "latency_report": report}
+    del server
+    _free(torch)
+    return launches, operands, numbers
+
+
+def _mla_flash_checks(torch, operands, launches):
+    """``flash_attention`` at MLA's D = 192 on the FMA route, at the
+    prefill's operands of layers 0 and 5 (q, k and v padded from 128 to
+    192 as ``mla_prefill_attention`` hands them over, scale 1/sqrt(192)):
+    bf16 within the sweep's bf16 tolerance of the plain version on the
+    same values in float32, the same operands in float32 within the
+    float32 tolerance of it, and the padded output columns exactly 0.
+    The plain version in bf16 rounds the scores q.k to bf16 (as the
+    reference's oracle does), while the TPU kernel and this one keep them
+    in float32: at these random weights MLA's scaled scores reach ~1e2,
+    where a bf16 rounding moves a score by ~0.5 and the near one-hot
+    softmax with it, so its distance is printed and not held (as for the
+    |s| ~ 1e4 adversarial cases).  Then the kernel, the plain version and
+    ``F.scaled_dot_product_attention`` timed at layer 0's operands beside
+    the bound: one row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+
+    worst = 0.0
+    for layer, (q, k, v, kw) in sorted(operands.items()):
+        scale = kw.get("scale")
+        if (q.shape[-1] != MLA_QK_DIM or kflash.route(q, k, v) != "fma"
+                or abs(scale - 1 / math.sqrt(MLA_QK_DIM)) > 1e-12):
+            raise RuntimeError(f"layer {layer}: D {q.shape[-1]}, route "
+                               f"{kflash.route(q, k, v)}, scale {scale}")
+        if v[..., MLA_V_DIM:].any():
+            raise RuntimeError(f"layer {layer}: v's padded columns are not zero")
+        got = kflash.flash_attention(q, k, v, causal=True, scale=scale)
+        want = ref.flash_attention(q, k, v, causal=True, scale=scale)
+        want32 = ref.flash_attention(q.float(), k.float(), v.float(), causal=True, scale=scale)
+        s_max = max(float((q[:, :, i:i + 128].float() @ k[:, :, :i + 128].float()
+                           .transpose(-1, -2)).abs().max()) for i in range(0, q.shape[2], 128))
+        torch.cuda.synchronize()
+        err, share = _flash_close(got, want, v, "bfloat16")
+        err_f, share_f = _flash_close(got, want32, v, "bfloat16")
+        if share_f > 1 or got[..., MLA_V_DIM:].any():
+            raise RuntimeError(f"flash_attention D=192 layer {layer}: bf16 {err_f:.3e} of rms(v) "
+                               f"from the plain version in float32, share {share_f:.3f}; padded "
+                               f"columns zero: {not got[..., MLA_V_DIM:].any()}")
+        del got, want
+        got32 = kflash.flash_attention(q.float(), k.float(), v.float(), causal=True,
+                                       scale=scale)
+        torch.cuda.synchronize()
+        err32, share32 = _flash_close(got32, want32, v.float(), "float32")
+        del got32, want32
+        if share32 > 1:
+            raise RuntimeError(f"flash_attention D=192 layer {layer}: float32 {err32:.3e} of "
+                               f"rms(v), share {share32:.3f}")
+        worst = max(worst, err_f)
+        print(f"[kernel] flash_attention D=192 layer {layer} q {tuple(q.shape)} strides "
+              f"{q.stride()}, largest scaled score {s_max * scale:.1f}: bf16 max |kernel - "
+              f"plain| {err_f:.3e} rms(v) (plain in float32, share of the bound "
+              f"{share_f:.3f}; the bf16 plain version, scores rounded to bf16, {err:.3e}); "
+              f"float32 {err32:.3e} rms(v), share {share32:.3f}; padded columns 0", flush=True)
+
+    q, k, v, kw = operands[FAM_CAPTURE_LAYERS[0]]
+    scale = kw["scale"]
+    b, h, s, d = q.shape
+    t = k.shape[2]
+    kernel = lambda: kflash.flash_attention(q, k, v, causal=True, scale=scale)  # noqa: E731
+    plain = lambda: ref.flash_attention(q, k, v, causal=True, scale=scale)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, scale=scale)
+    lib_err, lib_share = _flash_close(
+        library(), ref.flash_attention(q.float(), k.float(), v.float(), causal=True,
+                                       scale=scale), v, "bfloat16")
+    if lib_share > 1:
+        raise RuntimeError(f"SDPA disagrees with the plain version in float32 at D=192: "
+                           f"{lib_err:.3e} rms(v)")
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) + q.numel() * q.element_size()
+    pairs = b * h * sum(min(i + 1, t) for i in range(s))
+    flops = 4 * d * pairs
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    shape = (f"q {tuple(q.shape)} k/v {tuple(k.shape)} bfloat16 causal, v padded 128 -> 192 "
+             f"(layer {FAM_CAPTURE_LAYERS[0]} of the deepseek-v2-236b prefill)")
+    row = dict(
+        name="flash_attention_d192", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:62", shape=shape, counter="flash_attention",
+        launches=launches.get("flash_attention", 0), max_abs_err=worst,
+        ms=_queued_ms(torch, kernel, iters=10), plain_ms=_queued_ms(torch, plain, iters=5),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=_queued_ms(torch, library), call_ms=_call_ms(torch, kernel, iters=5),
+        plain_call_ms=_call_ms(torch, plain, iters=5),
+        library_call_ms=_call_ms(torch, library, iters=20), flops=flops, bytes=nbytes,
+    )
+    print(f"[kernel] flash_attention_d192 {shape}: kernel_ms={row['ms']:.6f} "
+          f"plain_ms={row['plain_ms']:.6f} library_ms={row['library_ms']:.6f} "
+          f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}: {flops} flops, {nbytes} bytes) "
+          f"call_ms={row['call_ms']:.6f} plain_call_ms={row['plain_call_ms']:.6f} "
+          f"library_call_ms={row['library_call_ms']:.6f}", flush=True)
+    return row
+
+
+def _mla_flash_adversarial_checks(torch) -> None:
+    """``flash_attention`` above D = 128 against its plain version, every
+    case on the FMA route: D of 129, 160 and 192 x S of 1, 63, 65 and 1000
+    x float32 and bf16, each as the model's transposed (B, S, H, D) views
+    with GQA group 1 (causal, T = S) and as contiguous (B, H, S, D)
+    tensors with GQA group 4 and T = S + 37 (full attention); bf16 results
+    also against the float32 plain version."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(192)
+    n = 0
+    for d in (129, 160, 192):
+        for s in (1, 63, 65, 1000):
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).split(".")[-1]
+                cases = (
+                    [torch.randn(shape, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+                     for shape in ((2, s, 8, d), (2, s, 8, d), (2, s, 8, d))] + [True],
+                    [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                     for shape in ((1, 8, s, d), (1, 2, s + 37, d), (1, 2, s + 37, d))]
+                    + [False])
+                for q, k, v, causal in cases:
+                    if kflash.route(q, k, v) != "fma":
+                        raise RuntimeError(f"D={d} took the {kflash.route(q, k, v)} route")
+                    got = kflash.flash_attention(q, k, v, causal=causal)
+                    wants = [("plain", ref.flash_attention(q, k, v, causal=causal)),
+                             ("f32 plain", ref.flash_attention(q.float(), k.float(), v.float(),
+                                                               causal=causal))]
+                    torch.cuda.synchronize()
+                    for label, want in wants:
+                        err, share = _flash_close(got, want, v, name)
+                        if share > 1:
+                            raise RuntimeError(
+                                f"flash_attention D={d} q {tuple(q.shape)} k {tuple(k.shape)} "
+                                f"{name} causal={causal}: {err:.3e} rms(v) from the {label} "
+                                "version")
+                    n += 1
+    print(f"[adversarial] flash_attention D in (129, 160, 192) x S in (1, 63, 65, 1000) x "
+          f"f32/bf16, model views with group 1 (causal) and contiguous with group 4, T = S + 37 "
+          f"(full): {n} cases on the FMA route within tolerance", flush=True)
+
+
+def _families_card_vs_cpu(torch):
+    """deepseek-v2-236b at full width, depth 1, from one set of weights
+    (drawn on the card from seed 1) on the card and on the CPU, in float32
+    and in bf16: a prefill of one 64-token prompt, then ``FAM_CPU_DECODE``
+    decode steps with both fed the card's tokens.  Each call's MoE routing
+    is recorded on both; a token whose chosen set of experts differs is a
+    flip, reported with its top-k margin (its k-th less its (k+1)-th
+    router probability, on the card); every flip must sit at a margin
+    under ``ROUTE_FLIP_MARGIN`` in both types.  float32: every call's
+    logits within rtol = atol = 1e-3 of the CPU's and the greedy tokens
+    equal.  bf16: the logits of every call with no flip within 10% of
+    their rms (the CPU tests' bf16 bound) and the greedy tokens equal; a
+    call with a flip is reported and not held.  A flip shows that the
+    router's input moved between the devices, and the same move sets the
+    logits apart: at these random weights MLA's scaled scores reach ~2e3
+    (the "scaled" initializer's fan-in is the layer count, 1 here), so
+    the attention's softmax is near one-hot, and a bf16 rounding of q or
+    k that differs between the devices' matrix products moves a score by
+    ~8 and can change the key a row attends to."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.deepseek_v2_236b import CONFIG
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(0, CONFIG.vocab_size, (1, 64))
+                              .astype(np.int32))
+    k = CONFIG.moe.top_k
+    records = []
+    original = moe_lib.route
+
+    def recording(router_w, x, m):
+        idx, gates, aux = original(router_w, x, m)
+        probs = torch.softmax(x.to(m.router_dtype) @ router_w, dim=-1)
+        top = torch.topk(probs, k + 1, dim=-1).values
+        records.append((idx.cpu(), (top[:, k - 1] - top[:, k]).cpu()))
+        return idx, gates, aux
+
+    result = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        cfg = dataclasses.replace(CONFIG, num_layers=1, param_dtype=dtype, compute_dtype=dtype)
+        card = build_model(cfg, device="cuda").init(1)
+        cpu = build_model(cfg, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        runs = {}
+        moe_lib.route = recording
+        try:
+            tokens = None
+            for dev, model in (("cuda", card), ("cpu", cpu)):
+                records.clear()
+                t0 = time.perf_counter()
+                logits, _ = model.prefill({"tokens": prompt})
+                steps = [logits.float().cpu()]
+                cache = model.init_cache(1, 16)
+                fed = [torch.argmax(logits, dim=-1).to(torch.int32).cpu() if tokens is None
+                       else tokens[0]]
+                for pos in range(FAM_CPU_DECODE):
+                    logits, cache = model.decode_step({"token": fed[-1], "pos": pos,
+                                                       "cache": cache})
+                    steps.append(logits.float().cpu())
+                    fed.append(torch.argmax(logits, dim=-1).to(torch.int32).cpu()
+                               if tokens is None else tokens[pos + 1])
+                if tokens is None:
+                    tokens = fed
+                runs[dev] = (steps, list(records), time.perf_counter() - t0)
+                del cache, logits
+        finally:
+            moe_lib.route = original
+        del card, cpu
+        _free(torch)
+
+        (g_steps, g_routes, g_s), (c_steps, c_routes, c_s) = runs["cuda"], runs["cpu"]
+        flips, calls = [], []
+        for call, ((gi, gm), (ci, _), g, c) in enumerate(zip(g_routes, c_routes, g_steps,
+                                                             c_steps)):
+            differ = [i for i in range(gi.shape[0])
+                      if set(gi[i].tolist()) != set(ci[i].tolist())]
+            flips += [{"call": call, "token": i, "margin": float(gm[i])} for i in differ]
+            err = float((g - c).abs().max())
+            calls.append({"max_abs_logit_diff": err,
+                          "max_diff_over_rms": err / float(c.square().mean().sqrt()),
+                          "greedy_equal": bool(torch.equal(g.argmax(-1), c.argmax(-1))),
+                          "flipped_tokens": len(differ), "smallest_margin": float(gm.min()),
+                          "allclose_1e-3": bool(torch.allclose(g, c, rtol=1e-3, atol=1e-3))})
+        result[name] = {"calls": calls, "flips": flips, "card_s": g_s, "cpu_s": c_s,
+                        "tokens": [int(x) for x in torch.cat(tokens, dim=1)[0]]}
+        print(f"[families] card vs CPU, deepseek-v2-236b full width depth 1 {name}, prompt 64 "
+              f"and {FAM_CPU_DECODE} decode steps: per call max |logit diff| "
+              f"{['%.3e' % c['max_abs_logit_diff'] for c in calls]} "
+              f"({['%.3e' % c['max_diff_over_rms'] for c in calls]} of rms), greedy equal "
+              f"{[c['greedy_equal'] for c in calls]}, routing flips "
+              f"{[c['flipped_tokens'] for c in calls]} (largest margins "
+              f"{sorted((f['margin'] for f in flips), reverse=True)[:4]}); card {g_s:.2f} s, "
+              f"CPU {c_s:.2f} s", flush=True)
+        bad = [f for f in flips if f["margin"] >= ROUTE_FLIP_MARGIN]
+        if bad:
+            raise RuntimeError(f"card vs CPU {name}: expert choices differ at margins >= "
+                               f"{ROUTE_FLIP_MARGIN}: {bad[:4]}")
+        if name == "float32":
+            held = [c["allclose_1e-3"] and c["greedy_equal"] for c in calls]
+        else:
+            held = [c["flipped_tokens"] > 0 or (c["max_diff_over_rms"] <= 0.1
+                                                and c["greedy_equal"]) for c in calls]
+        if not all(held):
+            raise RuntimeError(f"card vs CPU {name}: {calls}")
+    return result
+
+
+def _other_families(torch):
+    """The five other configs of the slice at full width, each with its
+    depth as ``FAM_OTHERS`` keeps it: a first call, then with the launch
+    counts set to 0 just before and read just after, a prefill and
+    ``FAM_OTHER_DECODE`` decode steps at batch 1 through ``serve``; every
+    prefill's attention on the tensor-core route (bf16, D = 128), once a
+    layer, the FMA route not once, and finite logits."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    out = {}
+    for arch, layers, prompt in FAM_OTHERS:
+        _free(torch)
+        cfg = configs.get_config(arch)
+        full = cfg.num_layers
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        model = build_model(cfg, device="cuda").init(0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        init_peak = torch.cuda.max_memory_allocated()
+        param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        serve.serve(model, batch=1, prompt_len=prompt, decode_steps=1, cache_len=LM_CACHE)
+        torch.cuda.reset_peak_memory_stats()
+        build.LAUNCHES.reset()
+        res = serve.serve(model, batch=1, prompt_len=prompt, decode_steps=FAM_OTHER_DECODE,
+                          cache_len=LM_CACHE)
+        torch.cuda.synchronize()
+        launches = build.LAUNCHES.snapshot()
+        peak = torch.cuda.max_memory_allocated()
+        others = {k: n for k, n in launches.items() if n and k != "flash_attention_sm90"}
+        if launches.get("flash_attention_sm90", 0) != cfg.num_layers or others:
+            raise RuntimeError(f"{arch}: the prefill launched flash_attention_sm90 "
+                               f"{launches.get('flash_attention_sm90', 0)} times and {others}, "
+                               f"expected {cfg.num_layers} and nothing else")
+        if not torch.isfinite(res["logits"].float()).all():
+            raise RuntimeError(f"{arch}: non-finite logits")
+        out[arch] = {"layers": cfg.num_layers, "published_layers": full, "prompt_len": prompt,
+                     "param_bytes": param_bytes, "init_s": init_s,
+                     "init_peak_device_bytes": init_peak, "prefill_s": res["prefill_s"],
+                     "decode_steps": FAM_OTHER_DECODE,
+                     "decode_tok_per_s": res["decode_tok_per_s"], "peak_device_bytes": peak,
+                     "launches": launches, "sampled_tokens_0": res["tokens"][0].tolist()}
+        print(f"[families] {arch}: {cfg.num_layers} of {full} layers ({param_bytes / 1e9:.3f} "
+              f"GB, drawn in {init_s:.2f} s, init peak {init_peak / 1e9:.3f} GB), prompt "
+              f"{prompt}: launches {launches}, prefill_s={res['prefill_s']:.6f} "
+              f"decode_tok_per_s={res['decode_tok_per_s']:.3f} peak device memory "
+              f"{peak / 1e9:.3f} GB, finite logits", flush=True)
+        del model, res
+    _free(torch)
+    return out
+
+
 def main() -> int:
     torch, card = _setup()
     import numpy as np
@@ -3455,6 +3935,24 @@ def main() -> int:
     ssm["card_vs_cpu"] = _ssm_card_vs_cpu(torch)
     print(json.dumps({"ssm": ssm}), flush=True)
     print(f"[phase] SSM card vs CPU {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = time.perf_counter()
+    fam_launches, fam_operands, families = _lm_families_path(torch)
+    print(f"[phase] LM families serving path {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    results.append(_mla_flash_checks(torch, fam_operands, fam_launches))
+    del fam_operands
+    _free(torch)
+    _mla_flash_adversarial_checks(torch)
+    print(f"[phase] flash_attention D=192 checks {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    families["card_vs_cpu"] = _families_card_vs_cpu(torch)
+    print(f"[phase] LM families card vs CPU {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    families["others"] = _other_families(torch)
+    print(json.dumps({"lm_families": families}), flush=True)
+    print(f"[phase] LM families, five other configs {time.perf_counter() - t:.1f} s",
+          flush=True)
     print(f"[phase] total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": results}))
     print(card)

@@ -14,21 +14,27 @@ becomes the port's parameter name ``"bottom.w0"``.
 
 An LM's weights in the reference are one tree whose layer leaves are
 stacked on a leading layer axis: ``embed.{tok,out}``, ``layers.{ln1, ln2,
-attn.{wq, wk, wv, wo, q_norm, k_norm}, ffn.{wi_gate, wi_up, wo}}`` and
-``ln_f``; an SSM's layers hold ``ln1`` and ``mixer.{wz, wx, wB, wC, wdt,
-conv_x, conv_B, conv_C, out}`` with the float32 ``mixer.{A_log, D,
-dt_bias, norm}``.  The port's LMs hold one module per layer, so layer i's
-leaf ``layers.attn.wq[i]`` is its parameter ``layers.{i}.attn.wq``.
-bfloat16 leaves cross through their bits, so they come across exact.
-The caches are stacked on the layer axis in both packages (``{"k", "v"}``
-of the dense family, ``{"state", "conv_x", "conv_B", "conv_C"}`` of the
-SSM), so they cross leaf by leaf.
+attn.{wq, wk, wv, wo, [bq, bk, bv], [q_norm, k_norm]}, ffn.{wi_gate,
+wi_up, wo}}`` and ``ln_f``; MLA's ``attn`` holds ``{w_dq, q_norm, w_uq,
+w_dkv, kv_norm, w_uk, w_uv, wo}`` and a MoE's ``ffn`` the float32
+``router``, the experts ``{wi_gate, wi_up, wo}`` stacked on an expert
+axis and ``shared.{wi_gate, wi_up, wo}``; an SSM's layers hold ``ln1``
+and ``mixer.{wz, wx, wB, wC, wdt, conv_x, conv_B, conv_C, out}`` with the
+float32 ``mixer.{A_log, D, dt_bias, norm}``.  The port's LMs hold one
+module per layer, so layer i's leaf ``layers.attn.wq[i]`` is its
+parameter ``layers.{i}.attn.wq``.  bfloat16 leaves cross through their
+bits, so they come across exact.  The caches are stacked on the layer
+axis in both packages (``{"k", "v"}`` of GQA, ``{"c_kv", "k_rope"}`` of
+MLA, ``{"state", "conv_x", "conv_B", "conv_C"}`` of the SSM), so they
+cross leaf by leaf.
 
 On a mesh each rank holds its vocab slice of the tables
 (``models.dlrm.vocab_rows``): ``dlrm_shard_from_numpy`` cuts a reference
 state to a rank's slice, and ``dlrm_tables_for_mesh`` draws a rank's
 slice of fresh tables by fixed row blocks, so every mesh holds the same
-tables without any rank drawing them whole.
+tables without any rank drawing them whole.  Under expert parallelism
+each rank holds its slice of a MoE's experts (``models.moe.expert_rows``):
+``moe_shard_from_numpy`` cuts one FFN's reference parameters to it.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import torch
 
 from repro_torch.core.schema import ColumnBatch, SparseColumn
 from repro_torch.models.dlrm import vocab_rows
+from repro_torch.models.moe import expert_rows
 
 
 def column_batch_from_numpy(
@@ -249,6 +256,25 @@ def lm_params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
 
 def lm_cache_from_numpy(cache: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The reference's stacked cache (the KV cache ``{"k", "v"}`` of (L, B,
-    S, KVH, D), or the SSM's state and conv tails) -> the port's, CPU
-    tensors of the same dtypes."""
+    S, KVH, D), MLA's ``{"c_kv", "k_rope"}`` of (L, B, S, r), or the SSM's
+    state and conv tails) -> the port's, CPU tensors of the same dtypes."""
     return {name: _tensor(np.asarray(a)) for name, a in cache.items()}
+
+
+
+def moe_shard_from_numpy(tree: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """One MoE FFN's reference parameters (numpy leaves: ``router``, the
+    expert leaves ``wi_gate``/``wi_up``/``wo`` with the expert axis
+    first, and ``shared`` if any) -> this rank's: a dict of CPU tensors of
+    the leaves' dtypes, the expert leaves cut to the rank's
+    ``expert_rows`` and everything else whole."""
+    lo, hi = expert_rows(np.shape(tree["wi_gate"])[0], mesh)
+    out: Dict[str, Any] = {}
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            out[name] = {k: _tensor(np.asarray(v)) for k, v in leaf.items()}
+        elif name in ("wi_gate", "wi_up", "wo"):
+            out[name] = _tensor(np.asarray(leaf)[lo:hi])
+        else:
+            out[name] = _tensor(np.asarray(leaf))
+    return out

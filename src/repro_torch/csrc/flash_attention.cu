@@ -50,7 +50,10 @@
 //     __shfl_xor_sync; m and l of each row live in registers;
 //   * p (rounded to the inputs' type) goes through shared memory to the
 //     P.V product, so each thread accumulates its 4 rows x D/16 columns;
-//   * the head dim is padded up to 32, 64 or 128 with zeros (D <= 128).
+//   * the head dim is padded up to 32, 64, 128 or 192 with zeros
+//     (D <= 192).  At 192 (MLA's 128 + 64 query/key dims, the values
+//     padded to them) the Q, K, V and P tiles take 164,608 bytes of shared
+//     memory: one block an SM, under the 227 KB a block may have.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -260,9 +263,14 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int b, int 
   if (d <= 64)
     return launch<T, 64>(q, k, v, out, b, s_len, t_len, heads, kv_heads, d, qs, ks, vs,
                          os, causal, scale, stream);
-  return launch<T, 128>(q, k, v, out, b, s_len, t_len, heads, kv_heads, d, qs, ks, vs,
+  if (d <= 128)
+    return launch<T, 128>(q, k, v, out, b, s_len, t_len, heads, kv_heads, d, qs, ks, vs,
+                          os, causal, scale, stream);
+  return launch<T, 192>(q, k, v, out, b, s_len, t_len, heads, kv_heads, d, qs, ks, vs,
                         os, causal, scale, stream);
 }
+
+static_assert(smem_bytes<192>() <= 227 * 1024, "D = 192 tiles exceed a block's shared memory");
 
 }  // namespace
 
@@ -270,7 +278,7 @@ extern "C" {
 
 // q (B, S, H, D), k and v (B, T, KVH, D), out (B, S, H, D), each given by
 // its (batch, position, head) strides in elements with the last dim
-// contiguous; H % KVH == 0, 1 <= D <= 128, S, T >= 1; bf16 != 0 for
+// contiguous; H % KVH == 0, 1 <= D <= 192, S, T >= 1; bf16 != 0 for
 // bfloat16 operands, else float32.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                            int b, int s_len, int t_len, int heads, int kv_heads, int d,
@@ -279,7 +287,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
                            int64_t v_sb, int64_t v_ss, int64_t v_sh,
                            int64_t o_sb, int64_t o_ss, int64_t o_sh,
                            int causal, float scale, int bf16, void* stream) {
-  if (d < 1 || d > 128 || kv_heads < 1 || heads % kv_heads != 0 || s_len < 1 || t_len < 1)
+  if (d < 1 || d > 192 || kv_heads < 1 || heads % kv_heads != 0 || s_len < 1 || t_len < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh};
   const Strides vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};

@@ -21,12 +21,13 @@ launch:
   dim contiguous, every other byte stride a positive multiple of 16, the
   base 16-byte aligned).  Counted as ``flash_attention_sm90``.
 * ``"fma"`` (``csrc/flash_attention.cu``): float32 FMAs on the CUDA
-  cores, any head dim up to 128, float32 or bf16, any strides with a
-  contiguous last dim.  It takes every other call.  Counted as
-  ``flash_attention``.
+  cores, any head dim up to 192 (MLA's prefill attends at 128 + 64),
+  float32 or bf16, any strides with a contiguous last dim.  It takes
+  every other call.  Counted as ``flash_attention``.
 
 The rule is a dispatch on the operands, not a fallback: a call that the
-tensor-core route takes raises if that kernel fails to build or launch.
+tensor-core route takes raises if that kernel fails to build or launch,
+and a head dim above 192 has no route and raises.
 ``flash_attention_fma`` and ``flash_attention_sm90`` launch one route
 each (the latter raises on operands it does not take), so the two can be
 timed on the same operands.
@@ -46,7 +47,7 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 192            # the FMA route's largest padded tile
 SM90_HEAD_DIMS = (64, 128)
 TMA_ALIGN = 16                # bytes: TMA's stride and base alignment
 _BLOCK_Q = 64                 # FMA route: query rows per block (grid.y counts tiles)
@@ -69,8 +70,12 @@ def tma_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``"sm90"`` for bf16 operands with D in (64, 128) whose views TMA
-    accepts, else ``"fma"``.  Reads only dtypes, shapes, strides and base
-    addresses, so it decides the same on any device."""
+    accepts, else ``"fma"`` (D up to 192); raises for a head dim outside
+    [1, 192], which neither route takes.  Reads only dtypes, shapes,
+    strides and base addresses, so it decides the same on any device."""
+    d = q.shape[-1]
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d} not in [1, {MAX_HEAD_DIM}]")
     if q.dtype != torch.bfloat16 or q.shape[-1] not in SM90_HEAD_DIMS:
         return "fma"
     if any(tma_strides(t) is None for t in (q, k, v)):

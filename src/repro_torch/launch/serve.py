@@ -5,14 +5,19 @@ KV cache (or, for an SSM, its recurrent state).
       --batch 4 --prompt-len 32 --decode-steps 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --smoke \\
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
+      --smoke --device cpu
 
 A port of the reference's ``repro.launch.serve``: the same flags and
 printed lines, plus ``--device`` (``cuda`` unless asked for ``cpu``).
 The weights are drawn from seed 0 on the device and the prompt from
-``numpy.random.default_rng(0)``; the decode loop runs against a fresh
-fixed-capacity cache from position 0, as the reference's does.  The dense
-GQA family (``qwen3-8b``) and the pure SSM family (``mamba2-2.7b``) are
-ported.
+``numpy.random.default_rng(0)``: the tokens, then for the vision frontend
+``image_embeds`` drawn as normal(0, 0.02) of (B, num_patches, d_model),
+as the reference draws them; the decode loop runs against a fresh
+fixed-capacity cache from position 0, as the reference's does.  Every LM
+arch of ``repro_torch.configs`` is served: the decoder families (dense,
+GQA, MLA, MoE, vision) and the pure SSM.  A vision prompt needs at least
+``num_patches`` positions.
 """
 from __future__ import annotations
 
@@ -44,8 +49,12 @@ def serve(model: DecoderLM, *, batch: int = 4, prompt_len: int = 32,
     logits."""
     dev = model.device
     rng = np.random.default_rng(0)
+    cfg = model.cfg
     prompt = {"tokens": torch.from_numpy(rng.integers(
-        0, model.cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(dev)}
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(dev)}
+    if cfg.frontend == "vision":
+        prompt["image_embeds"] = torch.from_numpy(rng.normal(
+            0, 0.02, (batch, cfg.num_patches, cfg.d_model))).to(dev, cfg.compute_dtype)
 
     _sync(dev)
     t0 = time.perf_counter()

@@ -1,6 +1,7 @@
-"""Models of the port: DLRM, the dense GQA decoder LM and the pure SSM
-(Mamba-2) LM.  The other LM families (MoE, MLA, vision, hybrid,
-encoder-decoder) come with their own slices."""
+"""Models of the port: DLRM, the decoder LM (dense, GQA, MLA, MoE and the
+vision frontend) and the pure SSM (Mamba-2) LM.  The hybrid and
+encoder-decoder families (and the audio frontend) come with their own
+slices."""
 from typing import Any, Union
 
 from repro_torch.models.common import MLAConfig, MoEConfig, ModelConfig, SSMConfig

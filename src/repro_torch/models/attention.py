@@ -1,7 +1,7 @@
-"""GQA attention: blocked online-softmax prefill and decode over a KV cache.
+"""Attention: GQA (blocked online-softmax prefill, decode over a KV cache)
+and MLA.
 
-A port of the GQA half of the reference's ``repro.models.attention``
-(MLA waits for its slice).  ``blocked_attention`` is where the TPU
+A port of the reference's ``repro.models.attention``.  ``blocked_attention`` is where the TPU
 kernel's function runs: on a CUDA tensor it launches the hand-written
 ``flash_attention`` kernel through ``repro_torch.kernels.ops`` on the
 (B, S, H, D) queries and (B, T, KVH, D) keys and values as (B, H, S, D)
@@ -11,6 +11,15 @@ online softmax (``_flash_fwd_impl``) when the chunks divide S and T, the
 dense softmax (``_dense_attention``) otherwise.  ``decode_attention`` is plain tensor
 code on either device, as the reference computes it outside any kernel.
 
+MLA (DeepSeek-V2's multi-head latent attention) caches the compressed
+``c_kv`` (B, S, kv_lora) and the shared rope key ``k_rope`` (B, S,
+rope).  Its prefill expands them to per-head keys and values, puts the
+rope part beside the nope part (qk dim 128 + 64 = 192 at full width),
+pads v to that dim and calls ``blocked_attention`` with the scale
+1/sqrt(qk dim), so on the card the flash kernel runs at D = 192 (its FMA
+route), and slices the output back to ``v_head_dim``.  Its decode is the
+absorbed-matrix form in plain tensor code, as in the reference.
+
 Masked scores are -2e38, not -inf, as in the reference.
 """
 from __future__ import annotations
@@ -19,6 +28,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, ParamSpec
@@ -165,3 +175,88 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     p = torch.softmax(sc, dim=-1).to(q.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache)
     return out.reshape(b, 1, h, d)
+
+
+# -- MLA (Multi-head Latent Attention, DeepSeek-V2) ----------------------------------
+
+
+def mla_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    m = cfg.mla
+    d, h, dt = cfg.d_model, cfg.num_heads, cfg.param_dtype
+    return {
+        "w_dq": ParamSpec((d, m.q_lora_rank), dt, "scaled", logical=("embed", None)),
+        "q_norm": ParamSpec((m.q_lora_rank,), torch.float32, "ones", logical=(None,)),
+        "w_uq": ParamSpec((m.q_lora_rank, h, m.qk_nope_dim + m.qk_rope_dim), dt, "scaled",
+                          logical=(None, "heads", None)),
+        "w_dkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_dim), dt, "scaled",
+                           logical=("embed", None)),
+        "kv_norm": ParamSpec((m.kv_lora_rank,), torch.float32, "ones", logical=(None,)),
+        "w_uk": ParamSpec((m.kv_lora_rank, h, m.qk_nope_dim), dt, "scaled",
+                          logical=(None, "heads", None)),
+        "w_uv": ParamSpec((m.kv_lora_rank, h, m.v_head_dim), dt, "scaled",
+                          logical=(None, "heads", None)),
+        "wo": ParamSpec((h, m.v_head_dim, d), dt, "scaled", logical=("heads", None, "embed")),
+    }
+
+
+def mla_compress(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """x (B, S, d) -> what MLA caches: c_kv (B, S, kv_lora), normed, and
+    k_rope (B, S, rope_dim), rotated."""
+    r = cfg.mla.kv_lora_rank
+    dkv = x @ params.w_dkv
+    c_kv = rmsnorm(dkv[..., :r], params.kv_norm, cfg.rms_eps)
+    k_rope = apply_rope(dkv[..., None, r:], positions, cfg.rope_theta)[..., 0, :]
+    return c_kv, k_rope
+
+
+def mla_queries(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """x (B, S, d) -> q_nope (B, S, H, nope) and q_rope (B, S, H, rope), rotated."""
+    nope = cfg.mla.qk_nope_dim
+    cq = rmsnorm(x @ params.w_dq, params.q_norm, cfg.rms_eps)
+    q = _project(cq, params.w_uq)
+    return q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
+
+
+def mla_prefill_attention(params, x: torch.Tensor, positions: torch.Tensor,
+                          cfg: ModelConfig, chunk: int):
+    """Full MLA attention by expanding the compressed KV into per-head K/V:
+    returns the context (B, S, d) and the cache entries (c_kv, k_rope)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q_nope, q_rope = mla_queries(params, x, positions, cfg)
+    c_kv, k_rope = mla_compress(params, x, positions, cfg)
+    k_nope = _project(c_kv, params.w_uk)
+    v = _project(c_kv, params.w_uv)
+    # the rope part is shared across heads
+    h = cfg.num_heads
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, m.qk_rope_dim)], dim=-1)
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    # v's head dim may be below the qk dim: pad v to it for the shared
+    # attention, then slice back
+    v_pad = F.pad(v, (0, qk_dim - m.v_head_dim)) if m.v_head_dim < qk_dim else v
+    out = blocked_attention(q, k, v_pad, causal=True, chunk=chunk, k_chunk=4 * chunk,
+                            softmax_scale=1.0 / math.sqrt(qk_dim))
+    ctx = output_projection(out[..., :m.v_head_dim], params.wo)
+    return ctx, (c_kv, k_rope)
+
+
+def mla_decode_attention(params, x: torch.Tensor, pos, c_kv_cache: torch.Tensor,
+                         k_rope_cache: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Absorbed-matrix MLA decode: x (B, 1, d) at position ``pos`` over the
+    caches c_kv (B, S, kv_lora) and k_rope (B, S, rope) whose positions
+    <= pos are valid; attention runs in the compressed space."""
+    m = cfg.mla
+    positions = torch.full(x.shape[:2], int(pos), dtype=torch.int64, device=x.device)
+    q_nope, q_rope = mla_queries(params, x, positions, cfg)                # (B,1,H,*)
+    # absorb W_UK: q_c[h] = q_nope[h] @ W_UK[h]^T, the compressed-space query
+    q_c = torch.einsum("bshk,rhk->bshr", q_nope, params.w_uk)              # (B,1,H,r)
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    sc = (torch.einsum("bshr,btr->bhst", q_c, c_kv_cache)
+          + torch.einsum("bshk,btk->bhst", q_rope, k_rope_cache)).to(torch.float32) * scale
+    valid = torch.arange(c_kv_cache.shape[1], device=x.device)[None, None, None, :] <= pos
+    sc = torch.where(valid, sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1).to(x.dtype)
+    ctx_c = torch.einsum("bhst,btr->bshr", p, c_kv_cache)                   # compressed ctx
+    ctx = torch.einsum("bshr,rhk->bshk", ctx_c, params.w_uv)               # expand with W_UV
+    return output_projection(ctx, params.wo)

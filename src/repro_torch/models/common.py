@@ -4,8 +4,8 @@ A port of the reference's ``repro.models.common``: the config dataclasses
 with torch dtypes in place of ``jnp`` dtypes, and ``ParamSpec`` trees
 (shape, dtype, initializer, logical axes) from which a model builds its
 parameters, and ``partition_specs``, the spec tree of a ``ParamSpec``
-tree under a rule table on a mesh.  Only DLRM names its logical axes so
-far; the LM families' wait for their sharded steps.
+tree under a rule table on a mesh.  DLRM, the MoE FFN and MLA name
+their logical axes; the other LM leaves wait for the sharded LM step.
 
 Initializers are the reference's (``_init_leaf``): ``zeros``, ``ones``,
 ``scaled`` (normal with std ``scale / sqrt(shape[0])``, drawn in float32
@@ -147,13 +147,21 @@ def param_count(tree: Any) -> int:
 
 def stacked(spec: ParamSpec, n: int) -> ParamSpec:
     """Add a leading layer ("stack") dimension, as the reference does."""
-    return dataclasses.replace(spec, shape=(n,) + spec.shape)
+    logical = None if spec.logical is None else ("stack",) + spec.logical
+    return dataclasses.replace(spec, shape=(n,) + spec.shape, logical=logical)
+
+
+DRAW_ELEMENTS = 1 << 30      # the largest float32 draw ``init_leaf`` makes at once
 
 
 @torch.no_grad()
 def init_leaf(out: torch.Tensor, spec: ParamSpec, gen: torch.Generator) -> None:
     """Fill ``out`` (of ``spec.shape``, or one layer of a stacked spec) by
-    ``spec``'s initializer, drawing float32 on ``out``'s device."""
+    ``spec``'s initializer, drawing float32 on ``out``'s device.  A leaf
+    of more than ``DRAW_ELEMENTS`` elements is drawn in slices along its
+    first axis, each of at most that many (one slice if a single row is
+    larger), so the float32 temporary stays at 4 GiB: one layer's expert
+    leaf of kimi-k2 is 5.6 G elements."""
     if spec.init == "zeros":
         out.zero_()
         return
@@ -165,8 +173,12 @@ def init_leaf(out: torch.Tensor, spec: ParamSpec, gen: torch.Generator) -> None:
         std = spec.scale / math.sqrt(max(fan_in, 1))
     else:                                          # "normal"
         std = 0.02 * spec.scale
-    draw = torch.randn(out.shape, generator=gen, dtype=torch.float32, device=out.device)
-    out.copy_(draw.mul_(std))
+    parts = [out]
+    if out.dim() and out.numel() > DRAW_ELEMENTS:
+        parts = out.split(max(DRAW_ELEMENTS // out[0].numel(), 1))
+    for part in parts:
+        draw = torch.randn(part.shape, generator=gen, dtype=torch.float32, device=out.device)
+        part.copy_(draw.mul_(std))
 
 
 def module_from_specs(specs: Dict[str, Any], device: torch.device) -> nn.Module:

@@ -8,7 +8,7 @@ cross-entropy of LM training is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
@@ -81,8 +81,10 @@ def output_logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x @ w.to(cfg.compute_dtype)
 
 
-def _leaves(params) -> Dict[str, torch.Tensor]:
-    """A module's direct parameters by name, or a dict as it is."""
+def _leaves(params) -> Dict[str, Any]:
+    """A module's direct parameters and submodules by name, or a dict as it is."""
     if isinstance(params, dict):
         return params
-    return dict(params.named_parameters(recurse=False))
+    out: Dict[str, Any] = dict(params.named_parameters(recurse=False))
+    out.update(params.named_children())
+    return out

@@ -1,9 +1,12 @@
-"""Decoder-only LM of the dense GQA family, in PyTorch.
+"""Decoder-only LM of the dense / GQA / MLA / MoE / VLM families, in PyTorch.
 
-A port of the dense half of the reference's ``repro.models.transformer``
-(``DecoderLM``) for serving: ``prefill`` (forward over the prompt,
-emitting the KV cache) and ``decode_step`` (one token against the cache).
-MoE, MLA and the vision frontend, and the training loss, are not ported.
+A port of the reference's ``repro.models.transformer`` (``DecoderLM``)
+for serving: ``prefill`` (forward over the prompt, emitting the cache)
+and ``decode_step`` (one token against the cache).  A layer's attention
+is GQA or MLA (``cfg.mla``) and its FFN a SwiGLU MLP or a MoE
+(``cfg.moe``); the vision frontend (``cfg.frontend == "vision"``) puts
+the batch's ``image_embeds`` in place of the first ``num_patches``
+positions.  The training loss is not ported.
 ``repro_torch.models.ssm_lm.SSMLM`` is a ``DecoderLM`` with other layers,
 cache and serving steps.
 
@@ -11,10 +14,11 @@ The reference scans one stacked parameter tree over the layers; here the
 layers are an ``nn.ModuleList`` whose parameters keep the reference's
 names (``layers.{i}.attn.wq``, ``layers.{i}.ffn.wi_gate``, ...), so
 ``repro_torch.convert.lm_params_from_numpy`` maps the stacked tree onto
-them layer by layer.  The cache keeps the reference's stacked layout:
-``{"k", "v"}`` of shape (L, B, S, KVH, D) in the compute dtype.
-``decode_step`` writes the new K/V row into the cache it is given, in
-place (the reference returns a new cache; its callers only ever use the
+them layer by layer.  The cache keeps the reference's stacked layout in
+the compute dtype: ``{"k", "v"}`` of shape (L, B, S, KVH, D), or MLA's
+``{"c_kv", "k_rope"}`` of (L, B, S, kv_lora) and (L, B, S, rope).
+``decode_step`` writes the new row into the cache it is given, in place
+(the reference returns a new cache; its callers only ever use the
 returned one), and returns that cache.
 
 ``init(seed)`` draws every leaf on the model's device from a
@@ -32,6 +36,7 @@ from torch import nn
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
     ModelConfig,
     ParamSpec,
@@ -44,19 +49,23 @@ from repro_torch.models.common import (
 def check_family(cfg: ModelConfig, family: str) -> None:
     """Raise for a config that the port's model of ``family`` ("dense":
     ``DecoderLM``, "ssm": ``SSMLM``) does not serve: another family, or a
-    feature of the LM families the port does not have yet."""
+    feature the port does not have yet.  ``DecoderLM`` takes MoE, MLA and
+    the vision frontend; ``SSMLM`` none of them."""
+    ssm = family == "ssm"
     missing = [what for what, has in (
-        ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
-        (f"the {cfg.frontend} frontend", cfg.frontend is not None),
-        ("SSM", family != "ssm" and (cfg.family == "ssm" or cfg.ssm is not None)),
+        ("MoE", ssm and cfg.moe is not None), ("MLA", ssm and cfg.mla is not None),
+        (f"the {cfg.frontend} frontend",
+         cfg.frontend is not None and (ssm or cfg.frontend != "vision")),
+        ("SSM", not ssm and (cfg.family == "ssm" or cfg.ssm is not None)),
         ("hybrid", cfg.family == "hybrid"),
         ("encoder-decoder", cfg.encoder_layers > 0),
     ) if has]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet; the port serves the "
-            "dense GQA decoder and the pure SSM (Mamba-2) families only")
-    if family == "ssm" and (cfg.family != "ssm" or cfg.ssm is None):
+            "decoder LM (dense, GQA, MLA, MoE, vision) and the pure SSM (Mamba-2) "
+            "families only")
+    if ssm and (cfg.family != "ssm" or cfg.ssm is None):
         raise ValueError(f"{cfg.name}: an SSM model needs family 'ssm' and an SSMConfig, "
                          f"got family {cfg.family!r}")
 
@@ -85,8 +94,9 @@ class DecoderLM(nn.Module):
         return {
             "ln1": layers.rmsnorm_spec(cfg.d_model),
             "ln2": layers.rmsnorm_spec(cfg.d_model),
-            "attn": attn.gqa_specs(cfg),
-            "ffn": layers.mlp_specs(cfg.d_model, cfg.d_ff, cfg.param_dtype),
+            "attn": attn.mla_specs(cfg) if cfg.mla else attn.gqa_specs(cfg),
+            "ffn": (moe_lib.moe_specs(cfg) if cfg.moe
+                    else layers.mlp_specs(cfg.d_model, cfg.d_ff, cfg.param_dtype)),
         }
 
     @torch.no_grad()
@@ -115,8 +125,13 @@ class DecoderLM(nn.Module):
     def abstract_cache(self, batch: int, seq: int) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
         """Shape and dtype of each cache entry."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads, cfg.head_dim)
-        return {"k": (shape, cfg.compute_dtype), "v": (shape, cfg.compute_dtype)}
+        lead = (cfg.num_layers, batch, seq)
+        dt = cfg.compute_dtype
+        if cfg.mla:
+            return {"c_kv": (lead + (cfg.mla.kv_lora_rank,), dt),
+                    "k_rope": (lead + (cfg.mla.qk_rope_dim,), dt)}
+        shape = lead + (cfg.num_kv_heads, cfg.head_dim)
+        return {"k": (shape, dt), "v": (shape, dt)}
 
     def init_cache(self, batch: int, seq: int) -> Dict[str, torch.Tensor]:
         return {name: torch.zeros(shape, dtype=dtype, device=self.device)
@@ -124,27 +139,54 @@ class DecoderLM(nn.Module):
 
     # -- serving ------------------------------------------------------------
 
-    @torch.no_grad()
-    def prefill(self, batch: Dict[str, torch.Tensor]):
-        """Forward over the prompt ``batch["tokens"]`` (B, S): returns the
-        last position's logits (B, 1, V) and the stacked KV cache."""
+    def embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The tokens' embeddings (B, S, d); for the vision frontend the
+        first ``num_patches`` positions are ``batch["image_embeds"]`` (B,
+        num_patches, d) in the compute dtype, when the batch has them."""
         cfg = self.cfg
         tokens = batch["tokens"].to(self.device)
-        b, s = tokens.shape
-        positions = torch.arange(s, device=self.device).expand(b, s)
         x = layers.embed_tokens(self.embed, tokens, cfg)
+        if cfg.frontend == "vision" and "image_embeds" in batch:
+            p = cfg.num_patches
+            if tokens.shape[1] < p:
+                raise ValueError(f"{cfg.name}: a prompt of {tokens.shape[1]} positions holds "
+                                 f"no room for {p} image patches")
+            img = batch["image_embeds"].to(self.device, cfg.compute_dtype)
+            x = torch.cat([img, x[:, p:, :]], dim=1)
+        return x
+
+    def _ffn(self, lp, hn: torch.Tensor) -> torch.Tensor:
+        if self.cfg.moe:
+            return moe_lib.moe_forward(lp.ffn, hn, self.cfg)[0]
+        return layers.mlp(lp.ffn, hn)
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, torch.Tensor]):
+        """Forward over the prompt ``batch["tokens"]`` (B, S) (and, for the
+        vision frontend, ``batch["image_embeds"]``): returns the last
+        position's logits (B, 1, V) and the stacked cache."""
+        cfg = self.cfg
+        x = self.embed_inputs(batch)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=self.device).expand(b, s)
         cache = {name: torch.empty(shape, dtype=dtype, device=self.device)
                  for name, (shape, dtype) in self.abstract_cache(b, s).items()}
         for i, lp in enumerate(self.layers):
             hn = layers.rmsnorm(x, lp.ln1, cfg.rms_eps)
-            q, k, v = attn.gqa_project_qkv(lp.attn, hn, positions, cfg)
-            o = attn.blocked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
-                                       k_chunk=cfg.attn_k_chunk)
-            cache["k"][i] = k
-            cache["v"][i] = v
-            x = x + attn.output_projection(o, lp.attn.wo)
-            hn = layers.rmsnorm(x, lp.ln2, cfg.rms_eps)
-            x = x + layers.mlp(lp.ffn, hn)
+            if cfg.mla:
+                ctx, (c_kv, k_rope) = attn.mla_prefill_attention(lp.attn, hn, positions, cfg,
+                                                                 cfg.attn_chunk)
+                cache["c_kv"][i] = c_kv
+                cache["k_rope"][i] = k_rope
+            else:
+                q, k, v = attn.gqa_project_qkv(lp.attn, hn, positions, cfg)
+                o = attn.blocked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
+                                           k_chunk=cfg.attn_k_chunk)
+                cache["k"][i] = k
+                cache["v"][i] = v
+                ctx = attn.output_projection(o, lp.attn.wo)
+            x = x + ctx
+            x = x + self._ffn(lp, layers.rmsnorm(x, lp.ln2, cfg.rms_eps))
         x = layers.rmsnorm(x, self.ln_f, cfg.rms_eps)
         return layers.output_logits(self.embed, x[:, -1:, :], cfg), cache
 
@@ -152,26 +194,33 @@ class DecoderLM(nn.Module):
     def decode_step(self, batch: Dict[str, Any]):
         """One token ``batch["token"]`` (B, 1) at position ``batch["pos"]``
         (an int or 0-d tensor) against ``batch["cache"]``: returns logits
-        (B, 1, V) and the cache with every batch row's K/V written at pos.
-        A pos past the cache is clamped for the write, as XLA's
+        (B, 1, V) and the cache with every batch row's entry written at
+        pos.  A pos past the cache is clamped for the write, as XLA's
         ``dynamic_update_slice`` clamps it; attention still sees pos."""
         cfg = self.cfg
         token, pos, cache = batch["token"].to(self.device), batch["pos"], batch["cache"]
         pos = int(pos)
-        seq = cache["k"].shape[2]
+        seq = next(iter(cache.values())).shape[2]
         at = min(max(pos, 0), seq - 1)
         x = layers.embed_tokens(self.embed, token, cfg)
         positions = torch.full(token.shape, pos, dtype=torch.int64, device=self.device)
         for i, lp in enumerate(self.layers):
             hn = layers.rmsnorm(x, lp.ln1, cfg.rms_eps)
-            q, k, v = attn.gqa_project_qkv(lp.attn, hn, positions, cfg)
-            k_c, v_c = cache["k"][i], cache["v"][i]
-            k_c[:, at] = k[:, 0].to(k_c.dtype)
-            v_c[:, at] = v[:, 0].to(v_c.dtype)
-            o = attn.decode_attention(q, k_c, v_c, pos)
-            x = x + attn.output_projection(o, lp.attn.wo)
-            hn = layers.rmsnorm(x, lp.ln2, cfg.rms_eps)
-            x = x + layers.mlp(lp.ffn, hn)
+            if cfg.mla:
+                new_ckv, new_krope = attn.mla_compress(lp.attn, hn, positions, cfg)
+                c_kv, k_rope = cache["c_kv"][i], cache["k_rope"][i]
+                c_kv[:, at] = new_ckv[:, 0].to(c_kv.dtype)
+                k_rope[:, at] = new_krope[:, 0].to(k_rope.dtype)
+                ctx = attn.mla_decode_attention(lp.attn, hn, pos, c_kv, k_rope, cfg)
+            else:
+                q, k, v = attn.gqa_project_qkv(lp.attn, hn, positions, cfg)
+                k_c, v_c = cache["k"][i], cache["v"][i]
+                k_c[:, at] = k[:, 0].to(k_c.dtype)
+                v_c[:, at] = v[:, 0].to(v_c.dtype)
+                o = attn.decode_attention(q, k_c, v_c, pos)
+                ctx = attn.output_projection(o, lp.attn.wo)
+            x = x + ctx
+            x = x + self._ffn(lp, layers.rmsnorm(x, lp.ln2, cfg.rms_eps))
         x = layers.rmsnorm(x, self.ln_f, cfg.rms_eps)
         return layers.output_logits(self.embed, x, cfg), cache
 

@@ -76,6 +76,46 @@ def test_flash_kernel_gqa_layout_matches_plain(cuda):
     assert torch.equal(got, want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [160, 192])
+def test_flash_kernel_mla_head_dims_match_plain(cuda, dtype, d):
+    """Head dims above 128 (MLA's prefill attends at 192) on the FMA
+    route: GQA 8 over 2, S = 65 against T = 100, causal and full, within
+    the sweep's tolerance; then MLA's own layout at D = 192: transposed
+    (B, S, H, D) views, v's last 64 columns zero as MLA pads them, scale
+    1/sqrt(192), the padded output columns exactly 0."""
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.standard_normal((2, 8, 65, d)).astype(np.float32)).to(cuda, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, 100, d)).astype(np.float32))
+            .to(cuda, dtype) for _ in range(2))
+    assert kflash.route(q, k, v) == "fma"
+    before = build.LAUNCHES.snapshot().get("flash_attention", 0)
+    tol = SWEEP_TOL[dtype]
+    for causal in (True, False):
+        got = kflash.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   rtol=tol, atol=tol)
+    assert build.LAUNCHES.snapshot()["flash_attention"] == before + 2
+    if d != 192:
+        return
+    qm, km = (torch.from_numpy(rng.standard_normal((2, 70, 4, 192)).astype(np.float32))
+              .to(cuda, dtype) for _ in range(2))
+    vm = torch.zeros_like(km)
+    vm[..., :128] = torch.from_numpy(rng.standard_normal((2, 70, 4, 128))
+                                     .astype(np.float32)).to(cuda, dtype)
+    views = [x.transpose(1, 2) for x in (qm, km, vm)]
+    scale = 1 / np.sqrt(192)
+    got = kflash.flash_attention(*views, causal=True, scale=scale)
+    want = ref.flash_attention(*views, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+    assert not got[..., 128:].any()
+
+
 def _bf16(cuda, rng, shape):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, torch.bfloat16)
 

@@ -78,6 +78,27 @@ def test_route_sends_other_types_and_head_dims_to_fma(dtype, d):
     assert kflash.route(q, k, v) == "fma"
 
 
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+@pytest.mark.parametrize("d", [129, 160, 192])
+def test_route_sends_mla_head_dims_to_fma(d, dtype):
+    """MLA's prefill attends at D = 192 (128 nope + 64 rope, v padded to
+    it): the FMA route takes D up to 192, chosen from the operands, with
+    views TMA would accept (a 384-byte row at 192)."""
+    q, k, v = _model_views(2, 16, 16, 8, 8, d, dtype)
+    assert kflash.route(q, k, v) == "fma"
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    assert kflash.route(qc, kc, vc) == "fma"
+    if d == 192:
+        assert kflash.tma_strides(qc) is not None
+
+
+@pytest.mark.parametrize("d", [193, 256])
+def test_route_refuses_head_dims_above_192(d):
+    """Neither route takes D > 192: ``route`` raises before any launch."""
+    with pytest.raises(ValueError, match=f"head dim {d} not in"):
+        kflash.route(*_model_views(1, 8, 8, 4, 4, d))
+
+
 def test_tma_strides_refuse_views_tma_cannot_read():
     """A base off 16 bytes, a byte stride that is not a multiple of 16, a
     last dim that is not contiguous and a broadcast (stride 0) dim each

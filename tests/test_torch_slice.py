@@ -88,8 +88,8 @@ def test_dlrm_paper_constants_match_reference():
                 assert getattr(got, n) == getattr(want, n), n
         assert (got.num_layers, got.sub_quadratic, got.attention_free) == (
             want.num_layers, want.sub_quadratic, want.attention_free)
-    with pytest.raises(KeyError, match="llama3-405b"):      # an arch not ported yet
-        configs.get_config("llama3-405b")
+    with pytest.raises(KeyError, match="jamba-1.5-large-398b"):      # an arch not ported yet
+        configs.get_config("jamba-1.5-large-398b")
 
 
 @pytest.mark.parametrize("flattened", [True, False])
