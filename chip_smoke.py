@@ -115,8 +115,13 @@
    four ranks' counts (set to 0 before its steps, read after): 8
    ``embedding_bag_warp`` launches and none on the block route, 0 on the
    one rank; the MLPs bit-identical and the losses equal across the four
-   ranks; their losses within rtol 1e-5 of the one rank's at step 1 and
-   1e-4 after; the rows batch 1 touched and their accumulator entries,
+   ranks; the one rank's MLP ReLUs keep exactly the units the four ranks'
+   kept (their pre-activations recorded by rank 0), its own
+   pre-activations within 1e-4 of their rms of the four ranks' at every
+   step (a ReLU derivative jumps at 0, and a pre-activation within
+   float32 rounding of 0 can fall on either side under the two sums'
+   orders: the flips are counted and printed); their losses within rtol
+   1e-5 of the one rank's at step 1 and 1e-4 after; the rows batch 1 touched and their accumulator entries,
    after step 1, each within rtol 1e-4, and every touched row after step
    8 within 1e-3 in relative norm (the trajectories may part at the 1e-5
    loss level, where rows with tiny, cancelling gradients move apart by
@@ -194,11 +199,36 @@
    image rows among them) and 8 decode steps at batch 1, one
    ``flash_attention_sm90`` launch a layer, finite logits.  Prints a
    ``{"lm_families": ...}`` line.
-10. Prints one JSON line with every kernel's numbers (sixteen: the nine
+10. The hybrid and encoder-decoder families (``_hybrid_encdec_path``):
+   with the earlier models freed, ``seamless-m4t-large-v2`` whole (24
+   encoder and 24 decoder layers, d_model 1024, 16 heads of 64, 2.03 B
+   parameters) and ``jamba-1.5-large-398b`` at every published width with
+   one block of its 72 layers and 8 of its 16 experts (25.8 B parameters,
+   51.6 GB: one block with all 16 is 90.3 GB), each drawn on the card from
+   seed 0 and served through ``serve`` (batch 4, 32 decode steps, cache
+   128; seamless' prompt 1024 frames and 128 decoder tokens, jamba's 1024
+   tokens) with the launch counts set to 0 just before and read just
+   after.  Checks exactly 72 ``flash_attention_sm90`` launches a seamless
+   prefill (24 encoder and 24 cross calls full, 24 decoder calls causal,
+   all at D = 64) and nothing else; exactly one ``flash_attention_sm90``
+   and 7 ``ssd_chunk_forward`` (the FMA route: d_state 16) a jamba
+   prefill and nothing else, its MoE capacity 1280; finite logits.  Then
+   ``flash_attention_sm90`` at seamless' layer-0 encoder and cross
+   operands and at jamba's attention, held to the plain version in
+   float32, and the FMA ``ssd_chunk_forward`` at jamba's layer-0 scan
+   held to the sequential recurrence within ``SSD_TOL``, each timed
+   beside its bound (and SDPA for attention).  Then float32 models on the
+   card against the CPU: seamless at full width with 2 + 2 layers and
+   jamba's SMOKE, a prefill and 3 decode steps, logits within 1e-3 of
+   their rms, every routing flip at a top-k margin under 1e-5.  Prints a
+   ``{"hybrid_encdec": ...}`` line.
+11. Prints one JSON line with every kernel's numbers (twenty: the nine
    TPU kernels' ports, ``fused_transform``, ``dense_unpack``,
    ``ragged_gather``, ``embedding_bag``, flash attention and the SSD scan
-   by both of their routes, and flash attention's FMA route again at
-   MLA's D = 192), the card's line,
+   by both of their routes, flash attention's FMA route again at MLA's D
+   = 192, its tensor-core route at seamless' D = 64 full and cross
+   operands and at jamba's attention, and the SSD scan's FMA route at
+   jamba's N = 16), the card's line,
    and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -275,6 +305,19 @@ ROUTE_FLIP_MARGIN = 1e-5      # a routing flip between card and CPU must sit bel
 FAM_OTHERS = (("codeqwen1.5-7b", None, 1024), ("llava-next-mistral-7b", None, 3072),
               ("kimi-k2-1t-a32b", 1, 1024), ("qwen2-72b", 4, 1024), ("llama3-405b", 4, 1024))
 FAM_OTHER_DECODE = 8
+# the hybrid and encoder-decoder phase: seamless-m4t-large-v2 whole, its
+# prompt 1024 frames (the decoder's 128 tokens); jamba-1.5-large-398b at
+# every published width, one block of 8 layers, 8 of its 16 experts (one
+# block with 16 is 90.26 GB of bf16, with 8 51.61 GB)
+ENCDEC_FRAMES = 1024
+JAMBA_EXPERTS = 8
+JAMBA_CAPACITY = 1280         # slots an expert: 4,096 tokens x top 2 x 1.25 / 8
+# its float32 card-vs-CPU check against a float64 model of the same weights:
+# the card within CARD_CPU_TOL of the logits' rms, or within F32_ERR_FACTOR
+# times the CPU float32 model's own distance where that is larger (two
+# float32 sums in other orders, each off the float64 one by its own draw)
+CARD_CPU_TOL = 1e-3
+F32_ERR_FACTOR = 3
 # the data-path kernels every DPP session launches on the card, and the
 # general routes of three of them, which no engine operand takes
 DATA_PATH_KERNELS = ("xor_decrypt", "dense_unpack_warp", "ragged_gather_vec",
@@ -1929,13 +1972,18 @@ def _checkpoint_phase(torch):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
-def _sharded_rank(rank, shape, batches, seed):
+def _sharded_rank(rank, shape, batches, seed, pattern=None):
     """One rank of the sharded DLRM phase (spawned): ``dlrm-paper`` at full
     vocab on ``shape``, 8 steps of ``make_dlrm_sparse_train_step``.
     Returns the step's launch counts, losses and times, the MLPs, the
     touched rows and their accumulator entries in this rank's slice,
     whether a sample of untouched rows kept its bits, the all_reduce time
-    of a pooled tensor, and peak device memory."""
+    of a pooled tensor, and peak device memory.  Without ``pattern``, rank
+    0 also returns every step's MLP pre-activations (each ReLU's input, in
+    call order); with ``pattern`` (those of another run), each ReLU keeps
+    exactly the units that run kept, and the rank returns, per step, how
+    many of its own pre-activations lie on the other side of 0 (flips)
+    and their largest distance from the pattern's over its rms."""
     import numpy as np
     import torch
 
@@ -1981,6 +2029,20 @@ def _sharded_rank(rank, shape, batches, seed):
                       "rows": params["tables"].view(-1, e)[flat].cpu().numpy(),
                       "acc": opt["acc"].view(-1)[flat].cpu().numpy()}
 
+    relu = torch.relu
+    relus = []                       # this step's ReLU inputs, and the pattern's
+
+    def patched(z):
+        zc = None
+        if pattern is not None:
+            zc = torch.from_numpy(pattern[len(losses)][len(relus)]).to(z.device)
+        relus.append((z.detach(), zc))
+        if zc is None:
+            return relu(z)
+        return torch.where(zc > 0, z, torch.zeros((), dtype=z.dtype, device=z.device))
+
+    watch = pattern is not None or rank == 0
+    pre_acts, flips, gaps = [], [], []
     # the main path: counts set to 0 just before, read just after; each
     # step timed to its loss on the host (a sync), the step-1 rows read
     # between steps 1 and 2
@@ -1988,9 +2050,21 @@ def _sharded_rank(rank, shape, batches, seed):
     losses, step_s = [], []
     for i, b in enumerate(local):
         t = time.perf_counter()
-        params, opt, metrics = bundle.fn(params, opt, b)
+        relus.clear()
+        if watch:
+            torch.relu = patched
+        try:
+            params, opt, metrics = bundle.fn(params, opt, b)
+        finally:
+            torch.relu = relu
         losses.append(metrics["loss"].item())
         step_s.append(time.perf_counter() - t)
+        if pattern is not None:
+            flips.append(sum(int(((zc > 0) != (z > 0)).sum()) for z, zc in relus))
+            gaps.append(max(float((z - zc).abs().max() / zc.square().mean().sqrt()
+                                  .clamp_min(1e-30)) for z, zc in relus))
+        elif watch:
+            pre_acts.append([z.cpu().numpy() for z, _ in relus])
         if i == 0:
             _, first = touched(batches[:1])
     launches = build.LAUNCHES.snapshot()
@@ -2019,6 +2093,8 @@ def _sharded_rank(rank, shape, batches, seed):
         "backend": mesh.backend, "launches": launches, "losses": losses, "step_s": step_s,
         "steps_per_s": len(local) / sum(step_s),
         "steps_per_s_after_first": (len(local) - 1) / sum(step_s[1:]), "init_s": init_s,
+        "pre_activations": pre_acts if pattern is None and rank == 0 else None,
+        "relu_flips": flips, "pre_activation_gap": gaps,
         "mlp": {k: p.cpu().numpy() for k, p in params.items() if k != "tables"},
         "touched_first": first, "touched": last, "untouched_checked": int(untouched.sum()),
         "untouched_kept": kept, "allreduce_ms": allreduce_ms,
@@ -2036,7 +2112,17 @@ def _sharded_phase(torch, batches, card):
     block route; 0 on the one rank), MLPs bit-identical across the four
     ranks, the losses, the touched rows and their accumulator entries
     against the one rank's, and a sample of untouched rows unchanged bit
-    for bit; returns the phase's record."""
+    for bit; returns the phase's record.  The one rank takes the four
+    ranks' ReLU pattern, as ``_lockstep`` takes the card's: the pooled
+    embeddings are summed in another order there (four partial sums and
+    an all_reduce against one sum), and a pre-activation within float32
+    rounding of 0 then lies on either side of it; the ReLU's derivative
+    jumps there, that sample's gradient moves, and by step 8 the touched
+    rows' accumulator entries sat 1.192e-3 and 2.133e-3 apart in relative
+    norm in two free-running runs (bound 1e-3; 3.1e-7 to 3.5e-7 in the
+    others).  Its own pre-activations must agree with the four ranks'
+    within ``LOCKSTEP_RTOL`` of their rms, so the borrowed pattern differs
+    from its own only at rounding level; the flips are counted."""
     import shutil
     import tempfile
 
@@ -2060,7 +2146,8 @@ def _sharded_phase(torch, batches, card):
         four_s = time.perf_counter() - t
         t = time.perf_counter()
         (one,) = spawn(_sharded_rank, 1, f"{tmp}/rdv1", "nccl",
-                       args=((1, 1), batches, SHARDED_SEED), timeout_s=SHARDED_TIMEOUT_S)
+                       args=((1, 1), batches, SHARDED_SEED, four[0].pop("pre_activations")),
+                       timeout_s=SHARDED_TIMEOUT_S)
         one_s = time.perf_counter() - t
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2076,6 +2163,12 @@ def _sharded_phase(torch, batches, card):
     if sum(one["launches"].values()) != 0:
         raise RuntimeError(f"the one-rank run launched {one['launches']}: the unsharded "
                            "path launches no kernel")
+    # the one rank took the four ranks' ReLU pattern: its own pre-activations
+    # must agree with theirs to rounding, so the borrowed pattern differs
+    # from its own only where a value lies within rounding of 0
+    if len(one["pre_activation_gap"]) != n or max(one["pre_activation_gap"]) > LOCKSTEP_RTOL:
+        raise RuntimeError(f"the one rank's MLP pre-activations differ from the four ranks' "
+                           f"by {one['pre_activation_gap']} of their rms, a step")
     if not one["untouched_kept"]:
         raise RuntimeError("the one-rank run changed untouched rows")
     for r in four[1:]:
@@ -2146,6 +2239,7 @@ def _sharded_phase(torch, batches, card):
         "max_abs_row_diff": float(row_diff.max()), "max_abs_acc_diff": float(acc_diff.max()),
         "row_rel_norm_diff": row_rel, "acc_rel_norm_diff": acc_rel,
         "rows_over_rtol": int(over.any(axis=1).sum()),
+        "relu_flips": one["relu_flips"], "pre_activation_gap": one["pre_activation_gap"],
         "untouched_checked": [r["untouched_checked"] for r in four],
     }
     print(f"[sharded] {card}: four gloo ranks {record['four']['steps_per_s']} steps/s "
@@ -2158,7 +2252,10 @@ def _sharded_phase(torch, batches, card):
           f"(max rel {rel.max():.3e}); step 1: {keys1.size} touched rows within rtol "
           f"{SHARDED_ROW_TOL['rtol']:g}; step {n}: {keys.size} touched rows, relative norm "
           f"{row_rel:.3e} (accumulator {acc_rel:.3e}), {record['rows_over_rtol']} rows past "
-          f"rtol {SHARDED_ROW_TOL['rtol']:g}; wall {four_s:.1f} + {one_s:.1f} s", flush=True)
+          f"rtol {SHARDED_ROW_TOL['rtol']:g}; the one rank's pre-activations within "
+          f"{max(one['pre_activation_gap']):.3e} of their rms of the four ranks', ReLU units "
+          f"on the other side of 0 a step {one['relu_flips']}; wall {four_s:.1f} + "
+          f"{one_s:.1f} s", flush=True)
     return record
 
 
@@ -3792,6 +3889,404 @@ def _other_families(torch):
     return out
 
 
+def _hybrid_encdec_serve(torch, label, cfg, prompt_len, expected):
+    """One model of the hybrid and encoder-decoder phase at full width
+    through ``serve`` on the card: drawn from seed 0, a first call, then
+    with the launch counts set to 0 just before and read just after, the
+    main path (batch ``LM_BATCH``, ``prompt_len``, ``LM_DECODE`` decode
+    steps, cache ``LM_CACHE``), whose launches must be ``expected`` and
+    nothing else, its logits finite and its tokens in the vocab; then
+    another prefill that captures every ``flash_attention`` and
+    ``ssd_chunk_forward`` call's operands.  Returns the launches, the
+    captured calls in order and the path's numbers."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = build_model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"[{label}] {cfg.name} ({type(model).__name__}): {n_params} parameters "
+          f"({param_bytes / 1e9:.3f} GB) drawn on the card in {init_s:.2f} s, init peak "
+          f"{init_peak / 1e9:.3f} GB", flush=True)
+    t = time.perf_counter()
+    serve.serve(model, batch=LM_BATCH, prompt_len=prompt_len, decode_steps=2,
+                cache_len=LM_CACHE)
+    print(f"[{label}] first call (prefill + 2 decode steps) {time.perf_counter() - t:.2f} s",
+          flush=True)
+
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.reset()
+    out = serve.serve(model, batch=LM_BATCH, prompt_len=prompt_len, decode_steps=LM_DECODE,
+                      cache_len=LM_CACHE)
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{label}] main path launches {launches}", flush=True)
+    if {k: n for k, n in launches.items() if n} != expected:
+        raise RuntimeError(f"{cfg.name}: the prefill launched {launches}, expected exactly "
+                           f"{expected}")
+    if not torch.isfinite(out["logits"].float()).all():
+        raise RuntimeError(f"{cfg.name}: non-finite logits")
+    tokens = out["tokens"]
+    if (tuple(tokens.shape) != (LM_BATCH, 1 + LM_DECODE) or int(tokens.min()) < 0
+            or int(tokens.max()) >= cfg.vocab_size):
+        raise RuntimeError(f"{cfg.name}: bad sampled tokens {tuple(tokens.shape)}")
+    print(f"[{label}] serve: prefill_s={out['prefill_s']:.6f} decode_s={out['decode_s']:.6f} "
+          f"decode_tok_per_s={out['decode_tok_per_s']:.3f} peak device memory "
+          f"{peak / 1e9:.3f} GB, finite logits, sampled tokens[0] {tokens[0, :16].tolist()}",
+          flush=True)
+
+    # every kernel call's operands, from another prefill
+    captured = []
+    originals = {name: getattr(ops, name) for name in ("flash_attention", "ssd_chunk_forward")}
+
+    def capturing(name):
+        def call(*args, **kw):
+            captured.append((name, tuple(a.clone() for a in args), kw))
+            return originals[name](*args, **kw)
+        return call
+
+    for name in originals:
+        setattr(ops, name, capturing(name))
+    try:
+        serve.serve(model, batch=LM_BATCH, prompt_len=prompt_len, decode_steps=0,
+                    cache_len=LM_CACHE)
+    finally:
+        for name, fn in originals.items():
+            setattr(ops, name, fn)
+    numbers = {
+        "config": cfg.name, "model": type(model).__name__, "layers": cfg.num_layers,
+        "encoder_layers": cfg.encoder_layers, "parameters": n_params,
+        "param_bytes": param_bytes, "init_s": init_s, "init_peak_device_bytes": init_peak,
+        "batch": LM_BATCH, "prompt_len": prompt_len, "decode_steps": LM_DECODE,
+        "cache_len": LM_CACHE, "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+        "decode_tok_per_s": out["decode_tok_per_s"], "launches": launches,
+        "peak_device_bytes": peak, "sampled_tokens_0": tokens[0, :16].tolist(),
+    }
+    del model, out
+    _free(torch)
+    return launches, captured, numbers
+
+
+def _hybrid_encdec_path(torch):
+    """``seamless-m4t-large-v2`` whole (24 encoder and 24 decoder layers,
+    the audio frontend's frames drawn by ``serve``: ``ENCDEC_FRAMES`` frames
+    and a decoder prompt of an eighth of them), then ``jamba-1.5-large-398b``
+    at every published width with one block of its 72 layers and
+    ``JAMBA_EXPERTS`` of its 16 experts, each through ``serve`` on the card
+    (``_hybrid_encdec_serve``).  Gates: seamless launches exactly
+    ``flash_attention_sm90`` 72 times a prefill (24 encoder, 24 decoder
+    self, 24 cross), jamba exactly one ``flash_attention_sm90`` and 7
+    ``ssd_chunk_forward`` (the FMA route: d_state 16) a prefill; jamba's MoE
+    capacity ``JAMBA_CAPACITY``.  Returns the launches, the captured
+    operands (seamless' encoder and cross calls of layer 0, jamba's
+    attention and layer 0's scan) and the numbers."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import moe as moe_lib
+
+    seamless = configs.get_config("seamless-m4t-large-v2")
+    expected = {"flash_attention_sm90": 3 * seamless.num_layers}
+    s_launches, s_calls, s_numbers = _hybrid_encdec_serve(
+        torch, "encdec", seamless, ENCDEC_FRAMES, expected)
+    n_enc = seamless.encoder_layers
+    # encoder layers first, then each decoder layer's self and cross calls
+    flash = [c for c in s_calls if c[0] == "flash_attention"]
+    if len(flash) != expected["flash_attention_sm90"] or any(
+            c[2]["causal"] != (n_enc <= i and (i - n_enc) % 2 == 0)
+            for i, c in enumerate(flash)):
+        raise RuntimeError(f"seamless: {len(flash)} captured attention calls, causal "
+                           f"{[c[2]['causal'] for c in flash]}")
+    operands = {"encoder": flash[0], "cross": flash[n_enc + 1]}
+
+    full = configs.get_config("jamba-1.5-large-398b")
+    jamba = dataclasses.replace(full, num_layers=full.block_period,
+                                moe=dataclasses.replace(full.moe, num_experts=JAMBA_EXPERTS))
+    cap = moe_lib._capacity(LM_BATCH * LM_PROMPT, jamba.moe)
+    if cap != JAMBA_CAPACITY:
+        raise RuntimeError(f"jamba MoE capacity {cap} at {LM_BATCH * LM_PROMPT} tokens, "
+                           f"expected {JAMBA_CAPACITY}")
+    expected = {"flash_attention_sm90": 1, "ssd_chunk_forward": full.block_period - 1}
+    j_launches, j_calls, j_numbers = _hybrid_encdec_serve(
+        torch, "hybrid", jamba, LM_PROMPT, expected)
+    operands["attention"] = next(c for c in j_calls if c[0] == "flash_attention")
+    operands["ssd"] = next(c for c in j_calls if c[0] == "ssd_chunk_forward")
+    j_numbers.update(published_layers=full.num_layers, published_experts=full.moe.num_experts,
+                     experts=JAMBA_EXPERTS, moe_capacity=cap)
+    print(f"[hybrid] MoE capacity {cap} slots an expert at {LM_BATCH * LM_PROMPT} tokens "
+          f"(top {jamba.moe.top_k} of {JAMBA_EXPERTS})", flush=True)
+    del s_calls, j_calls, flash
+    return {"encdec": s_launches, "hybrid": j_launches}, operands, {
+        "encdec": s_numbers, "hybrid": j_numbers}
+
+
+def _flash_row(torch, name, q, k, v, causal, launches, where):
+    """``flash_attention`` at one captured call's bf16 operands: the tensor-
+    core route they must take, held within the sweep's bf16 tolerance of
+    the plain version on the same values in float32.  Neither model has
+    qk_norm and the random weights' "scaled" fan-in is the layer count (24
+    for seamless, 1 for jamba's block), so the scores reach the tens to
+    thousands, where the bf16 plain version's rounding of each score to
+    bf16 (which the kernel, keeping them in float32, does not do) moves a
+    near one-hot softmax: its distance is printed, not held, as at MLA's
+    D = 192.  Then timed beside the plain version,
+    ``F.scaled_dot_product_attention`` and the bound (bytes: q, k, v read
+    and out written once; operations: 4 D flops a (query, key) pair the
+    mask keeps, at the bf16 peak).  Returns the kernels line's row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+
+    if kflash.route(q, k, v) != "sm90":
+        raise RuntimeError(f"{name}: the operands take the {kflash.route(q, k, v)} route")
+    got = kflash.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention(q, k, v, causal=causal)
+    want32 = ref.flash_attention(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    err, share = _flash_close(got, want, v, "bfloat16")
+    err_f, share_f = _flash_close(got, want32, v, "bfloat16")
+    if share_f > 1:
+        raise RuntimeError(f"{name}: {err_f:.3e} of rms(v) from the plain version in float32, "
+                           f"share of the bound {share_f:.3f} (the bf16 plain version "
+                           f"{err:.3e})")
+    s_max = max(float((q[:, :, i:i + 128].float() @ k.float().repeat_interleave(
+        q.shape[1] // k.shape[1], dim=1).transpose(-1, -2)).abs().max())
+        for i in range(0, q.shape[2], 128)) / math.sqrt(q.shape[-1])
+    del got, want
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
+    lib_err, lib_share = _flash_close(library(), want32, v, "bfloat16")
+    if lib_share > 1:
+        raise RuntimeError(f"{name}: SDPA disagrees with the plain version: {lib_err:.3e} rms(v)")
+    del want32
+    b, h, s, d = q.shape
+    t = k.shape[2]
+    pairs = b * h * (sum(min(i + 1, t) for i in range(s)) if causal else s * t)
+    flops = 4 * d * pairs
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) + q.numel() * q.element_size()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    kernel = lambda: kflash.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    plain = lambda: ref.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    shape = (f"q {tuple(q.shape)} k/v {tuple(k.shape)} bfloat16 "
+             f"{'causal' if causal else 'full'} ({where})")
+    row = dict(
+        name=name, route="cuda", source="src/repro_torch/csrc/flash_attention_sm90.cu",
+        replaces="src/repro/kernels/flash_attention.py:62", shape=shape,
+        counter="flash_attention_sm90", launches=launches, max_abs_err=err_f,
+        max_abs_err_bf16_plain=err, largest_scaled_score=s_max, ms=_queued_ms(torch, kernel),
+        plain_ms=_queued_ms(torch, plain, iters=5), bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=_queued_ms(torch, library), call_ms=_call_ms(torch, kernel, iters=20),
+        plain_call_ms=_call_ms(torch, plain, iters=5),
+        library_call_ms=_call_ms(torch, library, iters=20), flops=flops, bytes=nbytes,
+    )
+    print(f"[kernel] {name} {shape}: largest scaled score {s_max:.1f}; max |kernel - plain| "
+          f"{err_f:.3e} rms(v) (plain in float32, share of the bound {share_f:.3f}; the bf16 "
+          f"plain version {err:.3e}, share {share:.3f}); SDPA {lib_err:.3e}; "
+          f"kernel_ms={row['ms']:.6f} plain_ms={row['plain_ms']:.6f} "
+          f"library_ms={row['library_ms']:.6f} bound_ms={row['bound_ms']:.6f} "
+          f"({row['bound_by']}: {flops} flops, {nbytes} bytes) call_ms={row['call_ms']:.6f}",
+          flush=True)
+    return row
+
+
+def _hybrid_encdec_kernel_checks(torch, operands, launches):
+    """The phase's kernels at its captured operands: ``flash_attention_sm90``
+    at seamless' D = 64 encoder (full, (4, 16, 1024, 64)) and cross (full,
+    q (4, 16, 128, 64) against k/v (4, 16, 1024, 64)) calls of layer 0 and
+    at jamba's attention (GQA 64/8, D = 128, causal) (``_flash_row``);
+    ``ssd_chunk_forward``'s FMA route at jamba's layer-0 scan (x (4, 1024,
+    256, 64), B/C (4, 1024, 1, 16), chunk 256, bf16), y and the final state
+    against the plain version (the sequential float32 recurrence) within
+    ``SSD_TOL``, timed beside the plain version (a call time, as row 9's)
+    and ``_ssd_bound``; no single library call computes it.  Returns the
+    kernels line's rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as kssd
+
+    enc_n = launches["encdec"]["flash_attention_sm90"]
+    rows = [_flash_row(torch, "flash_attention_sm90_d64_full", *operands["encoder"][1],
+                       operands["encoder"][2]["causal"], enc_n,
+                       "encoder layer 0 of the seamless-m4t-large-v2 prefill"),
+            _flash_row(torch, "flash_attention_sm90_d64_cross", *operands["cross"][1],
+                       operands["cross"][2]["causal"], enc_n,
+                       "cross-attention of decoder layer 0, seamless-m4t-large-v2"),
+            _flash_row(torch, "flash_attention_sm90_jamba", *operands["attention"][1],
+                       operands["attention"][2]["causal"],
+                       launches["hybrid"]["flash_attention_sm90"],
+                       "the attention layer of the jamba-1.5-large-398b block")]
+    if operands["encoder"][2]["causal"] or operands["cross"][2]["causal"]:
+        raise RuntimeError("seamless' encoder or cross-attention call was causal")
+
+    _, (x, dt, a, b_, c_), kw = operands["ssd"]
+    chunk = kw["chunk"]
+    if kssd.route(x, b_, c_, chunk) != "fma":
+        raise RuntimeError(f"jamba's scan takes the {kssd.route(x, b_, c_, chunk)} route")
+    y, state = kssd.ssd_chunk_forward(x, dt, a, b_, c_, chunk=chunk)
+    want_y, want_state = ref.ssd_scan(x, dt, a, b_, c_)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(y.float()).all() and torch.isfinite(state).all()):
+        raise RuntimeError("ssd_chunk_forward at jamba's operands: not finite")
+    err_y, share_y = _ssd_close(y, want_y, SSD_TOL["bfloat16"])
+    err_s, share_s = _ssd_close(state, want_state, SSD_TOL["float32"])
+    if max(share_y, share_s) > 1:
+        raise RuntimeError(f"ssd_chunk_forward at jamba's operands: y {err_y:.3e} of rms(y), "
+                           f"state {err_s:.3e} of rms(state); shares {share_y:.3f}, "
+                           f"{share_s:.3f}")
+    del y, state, want_y, want_state
+    kernel = lambda: kssd.ssd_chunk_forward(x, dt, a, b_, c_, chunk=chunk)  # noqa: E731
+    plain_ms = _call_ms(torch, lambda: ref.ssd_scan(x, dt, a, b_, c_), iters=3)
+    bound_ms, bound_by, flops, nbytes = _ssd_bound(x, b_, chunk)
+    shape = (f"x {tuple(x.shape)} B/C {tuple(b_.shape)} bf16 chunk {chunk} (layer 0 of the "
+             "jamba-1.5-large-398b block, d_state 16: the FMA route)")
+    row = dict(
+        name="ssd_chunk_forward_n16", route="cuda", source="src/repro_torch/csrc/ssd_chunk.cu",
+        replaces="src/repro/kernels/ssd_chunk.py:67", shape=shape, counter="ssd_chunk_forward",
+        launches=launches["hybrid"]["ssd_chunk_forward"], max_abs_err=err_y,
+        state_err=err_s, ms=_queued_ms(torch, kernel), plain_ms=plain_ms,
+        plain_timed_by="call", bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        call_ms=_call_ms(torch, kernel, iters=20), plain_call_ms=plain_ms,
+        library_call_ms=None, flops=flops, bytes=nbytes,
+    )
+    rows.append(row)
+    print(f"[kernel] ssd_chunk_forward_n16 {shape}: max |kernel - plain| y {err_y:.3e} rms(y), "
+          f"state {err_s:.3e} rms(state), shares {share_y:.3f}, {share_s:.3f}; "
+          f"kernel_ms={row['ms']:.6f} plain_ms={plain_ms:.6f} (call time) library_ms=None "
+          f"bound_ms={bound_ms:.6f} ({bound_by}: {flops} flops, {nbytes} bytes) "
+          f"call_ms={row['call_ms']:.6f}", flush=True)
+    return rows
+
+
+def _hybrid_encdec_card_vs_cpu(torch):
+    """Float32 models from one set of weights (drawn on the card from seed
+    1) on the card and on the CPU, and the same weights in a float64 model
+    on the CPU: ``seamless-m4t-large-v2`` at full width with 2 encoder and
+    2 decoder layers (one prompt of 256 frames and 32 tokens), and
+    ``jamba``'s SMOKE (one block: every sublayer kind, the MoE and the FMA
+    scan at N = 16; two prompts of 64 tokens).  Each runs a prefill and
+    ``FAM_CPU_DECODE`` decode steps on the prefill's cache (K/V padded),
+    all fed the card's tokens.  Every call's logits on the card within
+    ``CARD_CPU_TOL`` of the float64 model's rms, or, where float32 itself
+    cannot meet that, within ``F32_ERR_FACTOR`` times the CPU float32
+    model's own distance from it; the greedy tokens of card and CPU equal.
+    Neither model has qk_norm and the random weights' "scaled" fan-in is
+    the layer count, so the softmax is near one-hot and a near tie of two
+    scores turns a float32 rounding into a move of the logits, on either
+    device: each call's distance of both from float64 is printed.  MoE
+    routing is
+    recorded on the card and the CPU in float32; a token whose chosen
+    experts differ is a flip, and every flip must sit at a top-k margin
+    under ``ROUTE_FLIP_MARGIN``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+
+    seamless = configs.get_config("seamless-m4t-large-v2")
+    jamba = configs.get_smoke_config("jamba-1.5-large-398b")
+    rng = np.random.default_rng(4)
+    cases = (
+        ("seamless-m4t-large-v2, 2 + 2 layers",
+         dataclasses.replace(seamless, num_layers=2, encoder_layers=2),
+         {"frames": torch.from_numpy(0.02 * rng.standard_normal((1, 256, seamless.d_model))),
+          "tokens": torch.from_numpy(rng.integers(0, seamless.vocab_size, (1, 32))
+                                     .astype(np.int32))}),
+        (jamba.name, jamba,
+         {"tokens": torch.from_numpy(rng.integers(0, jamba.vocab_size, (2, 64))
+                                     .astype(np.int32))}))
+    records = []
+    original = moe_lib.route
+
+    def recording(router_w, x, m):
+        idx, gates, aux = original(router_w, x, m)
+        probs = torch.softmax(x.to(m.router_dtype) @ router_w, dim=-1)
+        top = torch.topk(probs, m.top_k + 1, dim=-1).values
+        records.append((idx.cpu(), (top[:, m.top_k - 1] - top[:, m.top_k]).cpu()))
+        return idx, gates, aux
+
+    result = {}
+    for name, cfg, prompt in cases:
+        cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32, compute_dtype=torch.float32)
+        cfg64 = dataclasses.replace(cfg, param_dtype=torch.float64, compute_dtype=torch.float64)
+        card = build_model(cfg32, device="cuda").init(1)
+        cpu = build_model(cfg32, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        cpu64 = build_model(cfg64, device="cpu")
+        cpu64.load_state_dict(card.state_dict())     # float32 leaves stay float32
+        runs = {}
+        moe_lib.route = recording
+        try:
+            tokens = None
+            for dev, model in (("cuda", card), ("cpu", cpu), ("cpu64", cpu64)):
+                records.clear()
+                t0 = time.perf_counter()
+                logits, cache = model.prefill(prompt)
+                cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, FAM_CPU_DECODE))
+                         if k in ("k", "v") else v for k, v in cache.items()}
+                steps = [logits.cpu().double()]
+                fed = [torch.argmax(logits, dim=-1).to(torch.int32).cpu() if tokens is None
+                       else tokens[0]]
+                start = cache["k"].shape[2] - FAM_CPU_DECODE
+                for i in range(FAM_CPU_DECODE):
+                    logits, cache = model.decode_step({"token": fed[-1], "pos": start + i,
+                                                       "cache": cache})
+                    steps.append(logits.cpu().double())
+                    fed.append(torch.argmax(logits, dim=-1).to(torch.int32).cpu()
+                               if tokens is None else tokens[i + 1])
+                if tokens is None:
+                    tokens = fed
+                runs[dev] = (steps, list(records), time.perf_counter() - t0)
+                del cache, logits
+        finally:
+            moe_lib.route = original
+        del card, cpu, cpu64
+        _free(torch)
+        (g_steps, g_routes, g_s), (c_steps, c_routes, c_s) = runs["cuda"], runs["cpu"]
+        flips = [{"call": call, "token": i, "margin": float(gm[i])}
+                 for call, ((gi, gm), (ci, _)) in enumerate(zip(g_routes, c_routes))
+                 for i in range(gi.shape[0]) if set(gi[i].tolist()) != set(ci[i].tolist())]
+
+        def over_rms(a, b):
+            return float((a - b).abs().max() / b.square().mean().sqrt())
+
+        calls = [{"card_vs_cpu": over_rms(g, c), "card_vs_f64": over_rms(g, w),
+                  "cpu_vs_f64": over_rms(c, w),
+                  "greedy_equal": bool(torch.equal(g.argmax(-1), c.argmax(-1)))}
+                 for g, c, w in zip(g_steps, c_steps, runs["cpu64"][0])]
+        result[cfg.name] = {"calls": calls, "routing_calls": len(g_routes), "flips": flips,
+                            "card_s": g_s, "cpu_s": c_s, "cpu64_s": runs["cpu64"][2]}
+        print(f"[hybrid/encdec] card vs CPU, {name}, float32, prefill and {FAM_CPU_DECODE} "
+              f"decode steps, max |logit diff| over rms: card vs CPU "
+              f"{['%.3e' % c['card_vs_cpu'] for c in calls]}, card vs float64 "
+              f"{['%.3e' % c['card_vs_f64'] for c in calls]}, CPU float32 vs float64 "
+              f"{['%.3e' % c['cpu_vs_f64'] for c in calls]}; greedy equal "
+              f"{[c['greedy_equal'] for c in calls]}, {len(g_routes)} routing calls, "
+              f"{len(flips)} flips (margins {[f['margin'] for f in flips][:4]}); card "
+              f"{g_s:.2f} s, CPU {c_s:.2f} s, CPU float64 {runs['cpu64'][2]:.2f} s", flush=True)
+        bad = [f for f in flips if f["margin"] >= ROUTE_FLIP_MARGIN]
+        if bad:
+            raise RuntimeError(f"card vs CPU {name}: expert choices differ at margins >= "
+                               f"{ROUTE_FLIP_MARGIN}: {bad[:4]}")
+        if not all(c["greedy_equal"] and c["card_vs_f64"] <= max(
+                CARD_CPU_TOL, F32_ERR_FACTOR * c["cpu_vs_f64"]) for c in calls):
+            raise RuntimeError(f"card vs CPU {name}: {calls}")
+    return result
+
+
 def main() -> int:
     torch, card = _setup()
     import numpy as np
@@ -3953,6 +4448,15 @@ def main() -> int:
     print(json.dumps({"lm_families": families}), flush=True)
     print(f"[phase] LM families, five other configs {time.perf_counter() - t:.1f} s",
           flush=True)
+
+    t = time.perf_counter()
+    he_launches, he_operands, hybrid_encdec = _hybrid_encdec_path(torch)
+    results.extend(_hybrid_encdec_kernel_checks(torch, he_operands, he_launches))
+    del he_operands
+    _free(torch)
+    hybrid_encdec["card_vs_cpu"] = _hybrid_encdec_card_vs_cpu(torch)
+    print(json.dumps({"hybrid_encdec": hybrid_encdec}), flush=True)
+    print(f"[phase] hybrid and encoder-decoder {time.perf_counter() - t:.1f} s", flush=True)
     print(f"[phase] total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": results}))
     print(card)

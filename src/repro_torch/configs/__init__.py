@@ -5,9 +5,9 @@ Each architecture module defines ``CONFIG`` (the exact public config) and
 ``repro.configs`` does.  Ported so far: ``dlrm-paper``, the dense
 decoders ``qwen3-8b``, ``codeqwen1.5-7b``, ``qwen2-72b`` and
 ``llama3-405b``, the MLA + MoE ``deepseek-v2-236b``, the MoE
-``kimi-k2-1t-a32b``, the vision LM ``llava-next-mistral-7b`` and the
-pure SSM ``mamba2-2.7b``: every id of the reference's but the hybrid
-``jamba-1.5-large-398b`` and the encoder-decoder ``seamless-m4t-large-v2``.
+``kimi-k2-1t-a32b``, the vision LM ``llava-next-mistral-7b``, the pure
+SSM ``mamba2-2.7b``, the hybrid ``jamba-1.5-large-398b`` and the
+encoder-decoder ``seamless-m4t-large-v2``: every id of the reference's.
 """
 from __future__ import annotations
 
@@ -20,9 +20,11 @@ ARCH_IDS = [
     "llama3-405b",
     "qwen2-72b",
     "qwen3-8b",
+    "jamba-1.5-large-398b",
     "llava-next-mistral-7b",
     "deepseek-v2-236b",
     "kimi-k2-1t-a32b",
+    "seamless-m4t-large-v2",
     "dlrm-paper",
 ]
 
@@ -32,9 +34,11 @@ _MODULES = {
     "llama3-405b": "llama3_405b",
     "qwen2-72b": "qwen2_72b",
     "qwen3-8b": "qwen3_8b",
+    "jamba-1.5-large-398b": "jamba15_large",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "deepseek-v2-236b": "deepseek_v2_236b",
     "kimi-k2-1t-a32b": "kimi_k2_1t",
+    "seamless-m4t-large-v2": "seamless_m4t_v2",
     "dlrm-paper": "dlrm_paper",
 }
 

@@ -20,13 +20,17 @@ w_dkv, kv_norm, w_uk, w_uv, wo}`` and a MoE's ``ffn`` the float32
 ``router``, the experts ``{wi_gate, wi_up, wo}`` stacked on an expert
 axis and ``shared.{wi_gate, wi_up, wo}``; an SSM's layers hold ``ln1``
 and ``mixer.{wz, wx, wB, wC, wdt, conv_x, conv_B, conv_C, out}`` with the
-float32 ``mixer.{A_log, D, dt_bias, norm}``.  The port's LMs hold one
-module per layer, so layer i's leaf ``layers.attn.wq[i]`` is its
-parameter ``layers.{i}.attn.wq``.  bfloat16 leaves cross through their
-bits, so they come across exact.  The caches are stacked on the layer
-axis in both packages (``{"k", "v"}`` of GQA, ``{"c_kv", "k_rope"}`` of
-MLA, ``{"state", "conv_x", "conv_B", "conv_C"}`` of the SSM), so they
-cross leaf by leaf.
+float32 ``mixer.{A_log, D, dt_bias, norm}``.  A hybrid stacks its
+blocks instead (``blocks.sub{i}.{ln1, ln2, mixer.*, ffn.*}``), an
+encoder-decoder its two stacks (``enc_layers.*``, ``dec_layers.*``,
+beside ``enc_ln_f``).  The port's LMs hold one module per layer, so layer
+i's leaf ``layers.attn.wq[i]`` is its parameter ``layers.{i}.attn.wq``,
+and likewise for every stack of ``LM_STACKS``.  bfloat16 leaves cross
+through their bits, so they come across exact.  The caches are stacked
+on the layer (or block) axis in both packages (``{"k", "v"}`` of GQA,
+``{"c_kv", "k_rope"}`` of MLA, ``{"state", "conv_x", "conv_B",
+"conv_C"}`` of the SSM, both of the hybrid, ``cross_k``/``cross_v``
+beside the encoder-decoder's K/V), so they cross leaf by leaf.
 
 On a mesh each rank holds its vocab slice of the tables
 (``models.dlrm.vocab_rows``): ``dlrm_shard_from_numpy`` cuts a reference
@@ -223,16 +227,23 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+# the keys of an LM tree whose leaves the reference stacks on axis 0, one
+# entry a layer (``layers``), a hybrid block (``blocks``) or an
+# encoder or decoder layer (``enc_layers``, ``dec_layers``)
+LM_STACKS = ("layers", "blocks", "enc_layers", "dec_layers")
+
+
 def lm_params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The reference's LM parameter tree (numpy leaves, layers stacked on
-    axis 0) -> the port's state dict (CPU tensors of the leaves' dtypes),
+    """The reference's LM parameter tree (numpy leaves, each stack of
+    ``LM_STACKS`` stacked on axis 0) -> the port's state dict (CPU tensors
+    of the leaves' dtypes, a stack's leaf split into ``{stack}.{i}.*``),
     for ``model.load_state_dict``."""
     out = {}
     for name, leaf in _flatten(tree).items():
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
+        stack, _, rest = name.partition(".")
+        if stack in LM_STACKS:
             for i in range(leaf.shape[0]):
-                out[f"layers.{i}.{rest}"] = _tensor(leaf[i])
+                out[f"{stack}.{i}.{rest}"] = _tensor(leaf[i])
         else:
             out[name] = _tensor(leaf)
     return out
@@ -240,24 +251,27 @@ def lm_params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 def lm_params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
     """Inverse of ``lm_params_from_numpy``: the reference's nested tree of
-    a port ``DecoderLM``, its layers stacked again."""
+    a port LM, each stack's layers stacked again."""
     flat: Dict[str, Any] = {}
     per_layer: Dict[str, Dict[int, np.ndarray]] = {}
     for name, p in model.state_dict().items():
-        if name.startswith("layers."):
-            _, i, rest = name.split(".", 2)
-            per_layer.setdefault(rest, {})[int(i)] = _array(p)
+        stack, _, rest = name.partition(".")
+        if stack in LM_STACKS:
+            i, _, rest = rest.partition(".")
+            per_layer.setdefault(f"{stack}.{rest}", {})[int(i)] = _array(p)
         else:
             flat[name] = p
-    for rest, leaves in per_layer.items():
-        flat[f"layers.{rest}"] = np.stack([leaves[i] for i in sorted(leaves)])
+    for name, leaves in per_layer.items():
+        flat[name] = np.stack([leaves[i] for i in sorted(leaves)])
     return _nest(flat)
 
 
 def lm_cache_from_numpy(cache: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The reference's stacked cache (the KV cache ``{"k", "v"}`` of (L, B,
-    S, KVH, D), MLA's ``{"c_kv", "k_rope"}`` of (L, B, S, r), or the SSM's
-    state and conv tails) -> the port's, CPU tensors of the same dtypes."""
+    S, KVH, D), MLA's ``{"c_kv", "k_rope"}`` of (L, B, S, r), the SSM's
+    state and conv tails, the hybrid's both, over its blocks, or the
+    encoder-decoder's ``cross_k``/``cross_v`` beside its K/V) -> the
+    port's, CPU tensors of the same dtypes."""
     return {name: _tensor(np.asarray(a)) for name, a in cache.items()}
 
 

@@ -7,17 +7,19 @@ KV cache (or, for an SSM, its recurrent state).
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \\
+      --smoke --device cpu
 
 A port of the reference's ``repro.launch.serve``: the same flags and
 printed lines, plus ``--device`` (``cuda`` unless asked for ``cpu``).
 The weights are drawn from seed 0 on the device and the prompt from
-``numpy.random.default_rng(0)``: the tokens, then for the vision frontend
-``image_embeds`` drawn as normal(0, 0.02) of (B, num_patches, d_model),
-as the reference draws them; the decode loop runs against a fresh
-fixed-capacity cache from position 0, as the reference's does.  Every LM
-arch of ``repro_torch.configs`` is served: the decoder families (dense,
-GQA, MLA, MoE, vision) and the pure SSM.  A vision prompt needs at least
-``num_patches`` positions.
+``numpy.random.default_rng(0)`` in the reference's order (``make_prompt``);
+the decode loop runs against a fresh fixed-capacity cache from position
+0, as the reference's does (so an encoder-decoder's cross-attention there
+reads a zero ``cross_k``/``cross_v``).  Every LM arch of
+``repro_torch.configs`` is served: the decoder families (dense, GQA, MLA,
+MoE, vision), the pure SSM, the hybrid and the encoder-decoder.  A vision
+prompt needs at least ``num_patches`` positions.
 """
 from __future__ import annotations
 
@@ -40,21 +42,42 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def make_prompt(cfg, batch: int, prompt_len: int,
+                device: torch.device) -> Dict[str, torch.Tensor]:
+    """The prompt ``serve`` prefills, drawn from ``default_rng(0)`` in the
+    reference's order: tokens (B, prompt_len); for the vision frontend
+    ``image_embeds`` normal(0, 0.02) of (B, num_patches, d_model); for the
+    audio frontend ``frames`` normal(0, 0.02) of (B, prompt_len, d_model)
+    and then the decoder's tokens (B, max(prompt_len // 8, 8)) in place of
+    the first.  Embeddings in the compute dtype."""
+    rng = np.random.default_rng(0)
+
+    def tokens(shape):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+                                ).to(device)
+
+    def normal(shape):
+        return torch.from_numpy(rng.normal(0, 0.02, shape)).to(device, cfg.compute_dtype)
+
+    prompt = {"tokens": tokens((batch, prompt_len))}
+    if cfg.frontend == "vision":
+        prompt["image_embeds"] = normal((batch, cfg.num_patches, cfg.d_model))
+    if cfg.frontend == "audio":
+        prompt["frames"] = normal((batch, prompt_len, cfg.d_model))
+        prompt["tokens"] = tokens((batch, max(prompt_len // 8, 8)))
+    return prompt
+
+
 def serve(model: DecoderLM, *, batch: int = 4, prompt_len: int = 32,
           decode_steps: int = 16, cache_len: int = 128) -> Dict[str, Any]:
-    """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
-    ``decode_steps`` tokens greedily, on the model's device (any LM of the
-    port: a ``DecoderLM`` or its subclass ``SSMLM``); returns the
-    timings, the sampled tokens (B, 1 + decode_steps) and the last
-    logits."""
+    """Prefill ``batch`` prompts of ``prompt_len`` tokens (``make_prompt``;
+    for the audio frontend ``prompt_len`` frames and a decoder prompt of
+    ``max(prompt_len // 8, 8)`` tokens), then decode ``decode_steps``
+    tokens greedily, on the model's device (any LM of the port: a
+    ``DecoderLM`` or one of its subclasses); returns the timings, the
+    sampled tokens (B, 1 + decode_steps) and the last logits."""
     dev = model.device
-    rng = np.random.default_rng(0)
-    cfg = model.cfg
-    prompt = {"tokens": torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(dev)}
-    if cfg.frontend == "vision":
-        prompt["image_embeds"] = torch.from_numpy(rng.normal(
-            0, 0.02, (batch, cfg.num_patches, cfg.d_model))).to(dev, cfg.compute_dtype)
+    prompt = make_prompt(model.cfg, batch, prompt_len, dev)
 
     _sync(dev)
     t0 = time.perf_counter()

@@ -1,11 +1,12 @@
 """Models of the port: DLRM, the decoder LM (dense, GQA, MLA, MoE and the
-vision frontend) and the pure SSM (Mamba-2) LM.  The hybrid and
-encoder-decoder families (and the audio frontend) come with their own
-slices."""
+vision frontend), the pure SSM (Mamba-2) LM, the hybrid (Jamba) LM and
+the encoder-decoder LM with the audio frontend stub."""
 from typing import Any, Union
 
 from repro_torch.models.common import MLAConfig, MoEConfig, ModelConfig, SSMConfig
 from repro_torch.models.dlrm import DLRM, DLRMConfig
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.ssm_lm import SSMLM
 from repro_torch.models.transformer import DecoderLM
 
@@ -13,17 +14,22 @@ from repro_torch.models.transformer import DecoderLM
 def build_model(cfg: Any, **kwargs) -> Union[DLRM, DecoderLM]:
     """Model registry: config -> model.  ``kwargs`` go to the model's
     constructor (DLRM: ``tables``, ``seed``, ``device``; the LMs:
-    ``device``).  Family "ssm" builds an ``SSMLM``, any other
-    ``ModelConfig`` a ``DecoderLM``; one of a family or feature the port
-    does not have raises ``NotImplementedError``."""
+    ``device``).  In the reference's order: ``encoder_layers > 0`` builds
+    an ``EncDecLM``, family "ssm" an ``SSMLM``, family "hybrid" a
+    ``HybridLM``, any other ``ModelConfig`` a ``DecoderLM``; a config the
+    model does not serve raises (``transformer.check_family``)."""
     if isinstance(cfg, DLRMConfig):
         return DLRM(cfg, **kwargs)
     if isinstance(cfg, ModelConfig):
+        if cfg.encoder_layers > 0:
+            return EncDecLM(cfg, **kwargs)
         if cfg.family == "ssm":
             return SSMLM(cfg, **kwargs)
+        if cfg.family == "hybrid":
+            return HybridLM(cfg, **kwargs)
         return DecoderLM(cfg, **kwargs)
     raise TypeError(f"no model of the port for {type(cfg).__name__}")
 
 
-__all__ = ["DLRM", "DLRMConfig", "DecoderLM", "MLAConfig", "MoEConfig", "ModelConfig",
-           "SSMConfig", "SSMLM", "build_model"]
+__all__ = ["DLRM", "DLRMConfig", "DecoderLM", "EncDecLM", "HybridLM", "MLAConfig",
+           "MoEConfig", "ModelConfig", "SSMConfig", "SSMLM", "build_model"]

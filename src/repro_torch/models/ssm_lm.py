@@ -20,10 +20,8 @@ import torch
 
 from repro_torch.models import layers
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.hybrid import _ssm_prefill_with_state
+from repro_torch.models.hybrid import SSM_CACHE, _ssm_prefill_with_state
 from repro_torch.models.transformer import DecoderLM
-
-_CACHE = ("state", "conv_x", "conv_B", "conv_C")
 
 
 class SSMLM(DecoderLM):
@@ -69,7 +67,7 @@ class SSMLM(DecoderLM):
         for i, lp in enumerate(self.layers):
             hn = layers.rmsnorm(x, lp.ln1, cfg.rms_eps)
             mix, *entries = _ssm_prefill_with_state(lp.mixer, hn, cfg)
-            for name, t in zip(_CACHE, entries):
+            for name, t in zip(SSM_CACHE, entries):
                 cache[name][i] = t
             x = x + mix
         x = layers.rmsnorm(x, self.ln_f, cfg.rms_eps)
@@ -85,9 +83,9 @@ class SSMLM(DecoderLM):
         x = layers.embed_tokens(self.embed, token, cfg)
         for i, lp in enumerate(self.layers):
             hn = layers.rmsnorm(x, lp.ln1, cfg.rms_eps)
-            sub = {name: cache[name][i] for name in _CACHE}
+            sub = {name: cache[name][i] for name in SSM_CACHE}
             mix, sub = ssm_lib.ssm_decode_step(lp.mixer, hn, sub, cfg)
-            for name in _CACHE:
+            for name in SSM_CACHE:
                 cache[name][i] = sub[name]
             x = x + mix
         x = layers.rmsnorm(x, self.ln_f, cfg.rms_eps)

@@ -7,12 +7,14 @@ is GQA or MLA (``cfg.mla``) and its FFN a SwiGLU MLP or a MoE
 (``cfg.moe``); the vision frontend (``cfg.frontend == "vision"``) puts
 the batch's ``image_embeds`` in place of the first ``num_patches``
 positions.  The training loss is not ported.
-``repro_torch.models.ssm_lm.SSMLM`` is a ``DecoderLM`` with other layers,
-cache and serving steps.
+``repro_torch.models.ssm_lm.SSMLM``, ``hybrid.HybridLM`` and
+``encdec.EncDecLM`` are ``DecoderLM``s with other parameter trees
+(``param_specs``, ``stacks``), caches and serving steps.
 
-The reference scans one stacked parameter tree over the layers; here the
-layers are an ``nn.ModuleList`` whose parameters keep the reference's
-names (``layers.{i}.attn.wq``, ``layers.{i}.ffn.wi_gate``, ...), so
+The reference scans one stacked parameter tree over the layers; here each
+stack (``stacks``: ``layers`` here) is an ``nn.ModuleList`` whose
+parameters keep the reference's names (``layers.{i}.attn.wq``,
+``layers.{i}.ffn.wi_gate``, ...), so
 ``repro_torch.convert.lm_params_from_numpy`` maps the stacked tree onto
 them layer by layer.  The cache keeps the reference's stacked layout in
 the compute dtype: ``{"k", "v"}`` of shape (L, B, S, KVH, D), or MLA's
@@ -46,42 +48,73 @@ from repro_torch.models.common import (
 )
 
 
+# the features each model of the port takes, by its ``family``: "dense"
+# ``DecoderLM``, "ssm" ``SSMLM``, "hybrid" ``HybridLM``, "encdec" ``EncDecLM``
+_FEATURES = {
+    "dense": {"MoE", "MLA", "the vision frontend"},
+    "ssm": {"SSM"},
+    "hybrid": {"MoE", "SSM"},
+    "encdec": {"the audio frontend"},
+}
+
+
 def check_family(cfg: ModelConfig, family: str) -> None:
-    """Raise for a config that the port's model of ``family`` ("dense":
-    ``DecoderLM``, "ssm": ``SSMLM``) does not serve: another family, or a
-    feature the port does not have yet.  ``DecoderLM`` takes MoE, MLA and
-    the vision frontend; ``SSMLM`` none of them."""
-    ssm = family == "ssm"
-    missing = [what for what, has in (
-        ("MoE", ssm and cfg.moe is not None), ("MLA", ssm and cfg.mla is not None),
-        (f"the {cfg.frontend} frontend",
-         cfg.frontend is not None and (ssm or cfg.frontend != "vision")),
-        ("SSM", not ssm and (cfg.family == "ssm" or cfg.ssm is not None)),
-        ("hybrid", cfg.family == "hybrid"),
-        ("encoder-decoder", cfg.encoder_layers > 0),
-    ) if has]
+    """Raise for a config that the port's model of ``family`` does not
+    serve.  ``NotImplementedError`` for a feature the model does not take:
+    ``DecoderLM`` takes MoE, MLA and the vision frontend, ``SSMLM`` the SSM
+    alone, ``HybridLM`` the SSM and MoE, ``EncDecLM`` the audio frontend.
+    The reference's models ignore a feature they do not take (its decoder
+    builds with an audio frontend and never reads the frames); refusing one
+    here is a guard against a config that would be served without it, not
+    a feature of the port.  ``ValueError`` for a config of another family:
+    an SSM model needs family "ssm" and an ``SSMConfig``; a hybrid one
+    family "hybrid", an ``SSMConfig`` and ``block_period > 0`` dividing
+    ``num_layers`` with ``attn_index`` in its block; an encoder-decoder
+    one ``encoder_layers > 0``, which no other model takes."""
+    has = {"MoE": cfg.moe is not None, "MLA": cfg.mla is not None,
+           "SSM": cfg.ssm is not None, f"the {cfg.frontend} frontend": cfg.frontend is not None}
+    missing = [what for what, present in has.items()
+               if present and what not in _FEATURES[family]]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; the port serves the "
-            "decoder LM (dense, GQA, MLA, MoE, vision) and the pure SSM (Mamba-2) "
-            "families only")
-    if ssm and (cfg.family != "ssm" or cfg.ssm is None):
-        raise ValueError(f"{cfg.name}: an SSM model needs family 'ssm' and an SSMConfig, "
-                         f"got family {cfg.family!r}")
+            f"{cfg.name}: {', '.join(missing)} not served by the port's {family} model")
+    wrong = None
+    if (family == "encdec") != (cfg.encoder_layers > 0):
+        wrong = "encoder_layers > 0 selects the encoder-decoder model, and only it"
+    elif family == "ssm" and (cfg.family != "ssm" or cfg.ssm is None):
+        wrong = "an SSM model needs family 'ssm' and an SSMConfig"
+    elif family == "hybrid" and not (
+            cfg.family == "hybrid" and cfg.ssm is not None and cfg.block_period > 0
+            and cfg.num_layers % cfg.block_period == 0
+            and 0 <= cfg.attn_index < cfg.block_period):
+        wrong = ("a hybrid model needs family 'hybrid', an SSMConfig and block_period > 0 "
+                 "dividing num_layers, with attn_index in the block")
+    elif family in ("dense", "encdec") and cfg.family in ("ssm", "hybrid"):
+        wrong = f"family {cfg.family!r} has its own model"
+    if wrong:
+        raise ValueError(f"{cfg.name} (family {cfg.family!r}, {cfg.num_layers} layers, "
+                         f"block_period {cfg.block_period}, encoder_layers "
+                         f"{cfg.encoder_layers}): {wrong}")
 
 
 class DecoderLM(nn.Module):
-    family = "dense"                  # the config family this model serves
+    family = "dense"                  # the model's key in ``check_family``
 
     def __init__(self, cfg: ModelConfig, device: Union[str, torch.device] = "cuda"):
         super().__init__()
         check_family(cfg, self.family)
         self.cfg = cfg
-        dev = resolve(device, "DecoderLM")
-        self.embed = module_from_specs(layers.embed_specs(cfg), dev)
-        self.layers = nn.ModuleList(
-            module_from_specs(self.layer_specs(), dev) for _ in range(cfg.num_layers))
-        self.ln_f = nn.Parameter(torch.empty(cfg.d_model, dtype=torch.float32, device=dev))
+        dev = resolve(device, type(self).__name__)
+        stacks = self.stacks()
+        for key, spec in self.param_specs().items():
+            if key in stacks:
+                self.add_module(key, nn.ModuleList(
+                    module_from_specs(spec, dev) for _ in range(stacks[key])))
+            elif isinstance(spec, dict):
+                self.add_module(key, module_from_specs(spec, dev))
+            else:
+                self.register_parameter(key, nn.Parameter(
+                    torch.empty(spec.shape, dtype=spec.dtype, device=dev)))
 
     @property
     def device(self) -> torch.device:
@@ -99,23 +132,33 @@ class DecoderLM(nn.Module):
                     else layers.mlp_specs(cfg.d_model, cfg.d_ff, cfg.param_dtype)),
         }
 
-    @torch.no_grad()
-    def init(self, seed: int = 0) -> "DecoderLM":
-        """Draw every parameter from ``seed`` on the model's device, leaf by
-        leaf in the reference's tree order (sorted names), a stacked layer
-        leaf one layer at a time with the stacked leaf's initializer."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        n = self.cfg.num_layers
-        specs = {
+    def param_specs(self) -> Dict[str, Any]:
+        """The reference's parameter tree, each stack (``stacks``) as the
+        specs of one of its layers."""
+        return {
             "embed": layers.embed_specs(self.cfg),
             "layers": self.layer_specs(),
             "ln_f": layers.rmsnorm_spec(self.cfg.d_model),
         }
-        for name, spec in sorted(_flatten_specs(specs).items()):
-            if name.startswith("layers."):
-                rest = name[len("layers."):]
-                for layer in self.layers:
-                    init_leaf(layer.get_parameter(rest), stacked(spec, n), gen)
+
+    def stacks(self) -> Dict[str, int]:
+        """The keys of ``param_specs`` that the reference stacks on a
+        leading axis, and their lengths: here an ``nn.ModuleList`` of that
+        many modules."""
+        return {"layers": self.cfg.num_layers}
+
+    @torch.no_grad()
+    def init(self, seed: int = 0) -> "DecoderLM":
+        """Draw every parameter from ``seed`` on the model's device, leaf by
+        leaf in the reference's tree order (sorted names), a stacked leaf
+        one layer at a time with the stacked leaf's initializer."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        stacks = self.stacks()
+        for name, spec in sorted(_flatten_specs(self.param_specs()).items()):
+            key, _, rest = name.partition(".")
+            if key in stacks:
+                for layer in getattr(self, key):
+                    init_leaf(layer.get_parameter(rest), stacked(spec, stacks[key]), gen)
             else:
                 init_leaf(self.get_parameter(name), spec, gen)
         return self

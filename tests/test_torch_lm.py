@@ -383,10 +383,11 @@ def test_latency_report_fields():
 
 
 def _reference_change(change):
-    """A config change of the port's as the reference's (its MoE and MLA
-    config types, jnp dtypes)."""
+    """A config change of the port's as the reference's (its MoE, MLA and
+    SSM config types, jnp dtypes)."""
     from repro.models.common import MLAConfig as JMLAConfig
     from repro.models.common import MoEConfig as JMoEConfig
+    from repro.models.common import SSMConfig as JSSMConfig
 
     out = dict(change)
     if "moe" in change:
@@ -394,6 +395,8 @@ def _reference_change(change):
                                        router_dtype=jnp.float32))
     if "mla" in change:
         out["mla"] = JMLAConfig(**dataclasses.asdict(change["mla"]))
+    if "ssm" in change:
+        out["ssm"] = JSSMConfig(**dataclasses.asdict(change["ssm"]))
     return out
 
 
@@ -406,15 +409,23 @@ def _reference_change(change):
     dict(encoder_layers=2),
     dict(frontend="vision", num_patches=4),
     dict(frontend="audio"),
+    dict(encoder_layers=2, frontend="audio"),
 ])
 def test_build_model_raises_for_unported_families(change):
-    """MoE, MLA and the vision frontend are ported: the model builds, with
-    the reference's parameter names, shapes and dtypes (a stacked leaf of
-    shape (L, ...) is each layer's (...)).  The hybrid and
-    encoder-decoder families and the audio frontend still raise."""
+    """Every family is ported: the model builds, with the reference's
+    parameter names, shapes and dtypes (a leaf stacked on a leading axis
+    of n layers or blocks is each one's (...)).  A hybrid config without
+    an ``SSMConfig`` raises ``ValueError``; the audio frontend on a
+    decoder-only config raises ``NotImplementedError``, a guard: only the
+    encoder-decoder reads the frames (the reference's decoder builds and
+    ignores them)."""
     cfg = dataclasses.replace(SMOKE, **change)
-    if not ("moe" in change or "mla" in change or change.get("frontend") == "vision"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+    if change.get("family") == "hybrid" and "ssm" not in change:
+        with pytest.raises(ValueError, match="needs family 'hybrid', an SSMConfig"):
+            build_model(cfg, device="cpu")
+        return
+    if change == dict(frontend="audio"):
+        with pytest.raises(NotImplementedError, match="the audio frontend not served"):
             build_model(cfg, device="cpu")
         return
     model = build_model(cfg, device="cpu")
@@ -422,9 +433,10 @@ def test_build_model_raises_for_unported_families(change):
                           ).param_specs()
     want = {}
     for name, spec in convert.flatten(specs).items():
-        if name.startswith("layers."):
-            for i in range(cfg.num_layers):
-                want[f"layers.{i}.{name[len('layers.'):]}"] = (spec.shape[1:], spec.dtype)
+        stack, _, rest = name.partition(".")
+        if stack in convert.LM_STACKS:
+            for i in range(spec.shape[0]):
+                want[f"{stack}.{i}.{rest}"] = (spec.shape[1:], spec.dtype)
         else:
             want[name] = (spec.shape, spec.dtype)
     got = {n: (tuple(p.shape), p.dtype) for n, p in model.state_dict().items()}
@@ -443,7 +455,7 @@ def test_build_model_builds_ssm_family():
     model = build_model(cfg, device="cpu")
     assert isinstance(model, SSMLM)
     assert sorted(model.abstract_cache(2, 8)) == ["conv_B", "conv_C", "conv_x", "state"]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="MoE not served by the port's ssm model"):
         build_model(dataclasses.replace(cfg, moe=MoEConfig(num_experts=4, top_k=2, d_ff=64)),
                     device="cpu")
 

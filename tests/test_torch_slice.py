@@ -88,8 +88,10 @@ def test_dlrm_paper_constants_match_reference():
                 assert getattr(got, n) == getattr(want, n), n
         assert (got.num_layers, got.sub_quadratic, got.attention_free) == (
             want.num_layers, want.sub_quadratic, want.attention_free)
-    with pytest.raises(KeyError, match="jamba-1.5-large-398b"):      # an arch not ported yet
-        configs.get_config("jamba-1.5-large-398b")
+    with pytest.raises(KeyError, match="no-such-arch"):      # an arch neither package has
+        configs.get_config("no-such-arch")
+    with pytest.raises(KeyError):
+        jconfigs.get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("flattened", [True, False])
