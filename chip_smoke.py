@@ -222,7 +222,26 @@
    jamba's SMOKE, a prefill and 3 decode steps, logits within 1e-3 of
    their rms, every routing flip at a top-k margin under 1e-5.  Prints a
    ``{"hybrid_encdec": ...}`` line.
-11. Prints one JSON line with every kernel's numbers (twenty: the nine
+11. LM training (``_lm_train_path``): a DWRF token corpus
+   (``core.tokens.build_corpus``: 3 partitions of 96 documents at
+   ``qwen3-8b``'s vocab) read whole through ``lm_batches_from_table(...,
+   decode_engine="torch")`` with the counts set to 0: one ``xor_decrypt``
+   and one ``ragged_gather_vec`` launch a stripe, the scalar route never,
+   every batch byte-identical to the numpy engine's.  Then ``qwen3-8b`` at
+   full width with its depth cut from 36 layers to 4 (2.02 B parameters;
+   AdamW's state beside them) trained 6 steps at batch 2 x 4096 by
+   ``Trainer.fit`` fed live by the same reader, counts set to 0 just
+   before and read just after: no ``flash_attention*`` or ``ssd_chunk*``
+   launch (forward-only kernels: training attends through the plain
+   ``_Flash``), the decode kernels launched, finite losses and grad
+   norms; step times by CUDA events, tokens/s, peak memory, the stall
+   fraction and the model FLOPs' share of the bf16 peak.  Then the
+   attention's share of a step (``_Flash`` beside SDPA at the step's
+   operands), ``_Flash`` at (1, 1024, 32, 128) over 8 KV heads in bf16
+   against float64 on the card (2e-2 in relative norm) and one narrow
+   float32 training step on the card against the CPU and float64.
+   Prints a ``{"lm_train": ...}`` line.
+12. Prints one JSON line with every kernel's numbers (twenty: the nine
    TPU kernels' ports, ``fused_transform``, ``dense_unpack``,
    ``ragged_gather``, ``embedding_bag``, flash attention and the SSD scan
    by both of their routes, flash attention's FMA route again at MLA's D
@@ -312,6 +331,30 @@ FAM_OTHER_DECODE = 8
 ENCDEC_FRAMES = 1024
 JAMBA_EXPERTS = 8
 JAMBA_CAPACITY = 1280         # slots an expert: 4,096 tokens x top 2 x 1.25 / 8
+# the LM training phase: qwen3-8b at every published width, its depth cut
+# from 36 layers to 4 (PERF.md section 4: ~2.0 B parameters, bf16 weights
+# and gradients plus float32 AdamW moments and the update's copies ~60 GB),
+# batch 2 at seq 4096 (the reference's SHAPES["train_4k"]), 6 steps from a
+# DWRF token corpus of 3 partitions of 96 documents read through the decode
+# kernels
+LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 2, 4096, 6
+LM_TRAIN_PARTITIONS, LM_TRAIN_DOCS = 3, 96
+LM_TRAIN_OPT = dict(learning_rate=3e-4, warmup_steps=2, total_steps=LM_TRAIN_STEPS)
+# one step on the card against the CPU: a narrow qwen3 in float32 whose
+# chunks divide seq 256 into 4 attention blocks and 4 logit chunks
+LM_TRAIN_NARROW = dict(num_layers=2, d_model=256, vocab_size=2048, attn_chunk=64,
+                       attn_k_chunk=64, logit_chunk=64)
+LM_TRAIN_NARROW_SEQ = 256
+# the attention backward alone at qwen3-8b's head shape: q (1, 1024, 32,
+# 128) over 8 KV heads, bf16, in 256-row q and 512-row k blocks; dq, dk and
+# dv within 2e-2 of a float64 run's rms in relative norm (the reference
+# kernel sweep's bf16 bound)
+FLASH_BWD_Q, FLASH_BWD_KV_HEADS, FLASH_BWD_CHUNKS = (1, 1024, 32, 128), 8, (256, 512)
+FLASH_BWD_TOL = 2e-2
+# the kernels a training step must not launch: forward-only, they return
+# no log-sum-exp for a backward
+FORWARD_ONLY_KERNELS = ("flash_attention", "flash_attention_sm90", "ssd_chunk_forward",
+                        "ssd_chunk_forward_sm90")
 # its float32 card-vs-CPU check against a float64 model of the same weights:
 # the card within CARD_CPU_TOL of the logits' rms, or within F32_ERR_FACTOR
 # times the CPU float32 model's own distance where that is larger (two
@@ -4287,6 +4330,315 @@ def _hybrid_encdec_card_vs_cpu(torch):
     return result
 
 
+def _lm_train_path(torch):
+    """Full-width qwen3-8b, its depth cut to ``LM_TRAIN_LAYERS`` of 36,
+    trained ``LM_TRAIN_STEPS`` steps by the port's ``Trainer`` from a DWRF
+    token corpus (``core.tokens.build_corpus``) read through
+    ``lm_batches_from_table(..., decode_engine="torch")``.  First the
+    whole corpus is extracted with the counts set to 0: one
+    ``xor_decrypt`` and one ``ragged_gather_vec`` launch a stripe, the
+    scalar route never, and every batch byte-identical to the numpy
+    engine's.  Then the training run, counts set to 0 just before and read
+    just after: the decode kernels launched by the batches it read, no
+    forward-only kernel (``FORWARD_ONLY_KERNELS``) launched, every loss and
+    grad norm finite, the batches it took the numpy engine's.  Step times
+    are CUDA events around each step; the model FLOPs of a step are 6 x
+    the matmul parameters (the layers and ``out``) x its tokens plus 6 x
+    B H S^2 D a layer for the causal attention.  Then the attention's share
+    of a step (``_Flash`` forward, recompute and backward at the step's
+    operands, beside SDPA's forward and backward), ``_Flash`` alone against
+    float64 (``_flash_bwd_check``) and one narrow step on the card against
+    the CPU (``_lm_train_card_vs_cpu``)."""
+    import dataclasses
+
+    from repro_torch.configs.qwen3_8b import CONFIG
+    from repro_torch.core import tokens as T
+    from repro_torch.core.warehouse import Warehouse
+    from repro_torch.kernels import build
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    _free(torch)
+    cfg = dataclasses.replace(CONFIG, num_layers=LM_TRAIN_LAYERS)
+    b, s = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    t = time.perf_counter()
+    table = T.build_corpus(Warehouse(), LM_TRAIN_PARTITIONS, LM_TRAIN_DOCS, cfg.vocab_size,
+                           seed=0)
+    n_stripes = sum(len(p.footer.stripes) for p in table.partitions.values())
+    ref = list(T.lm_batches_from_table(table, s, b))
+    corpus_s = time.perf_counter() - t
+
+    # the whole corpus through the decode kernels: counts set to 0 just before
+    build.LAUNCHES.reset()
+    t = time.perf_counter()
+    got = list(T.lm_batches_from_table(table, s, b, decode_engine="torch"))
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t
+    extract = build.LAUNCHES.snapshot()
+    print(f"[lm_train] corpus: {table.total_rows} documents, {table.total_bytes} B in "
+          f"{n_stripes} stripes, {len(ref)} batches of {b} x {s} tokens ({corpus_s:.2f} s "
+          f"with the numpy engine's read); the torch engine's read {extract_s:.2f} s, "
+          f"launches {extract}", flush=True)
+    for name in ("xor_decrypt", "ragged_gather_vec"):
+        if extract.get(name, 0) != n_stripes:
+            raise RuntimeError(f"extract launched {name} {extract.get(name, 0)} times, "
+                               f"expected one a stripe ({n_stripes})")
+    if extract.get("ragged_gather", 0):
+        raise RuntimeError(f"extract launched ragged_gather's scalar route "
+                           f"{extract['ragged_gather']} times")
+    if list(map(_digest, got)) != list(map(_digest, ref)) or len(ref) < LM_TRAIN_STEPS:
+        raise RuntimeError("the torch engine's token batches differ from the numpy engine's")
+    print("[lm_train] token batches byte-identical to the numpy engine's", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    trainer = Trainer(cfg, OptimizerConfig(**LM_TRAIN_OPT),
+                      TrainerConfig(max_steps=LM_TRAIN_STEPS), device="cuda")
+    held = [trainer.init_state(0)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    model = trainer.model
+    n_params = sum(p.numel() for p in model.parameters())
+    n_matmul = sum(p.numel() for p in model.layers.parameters()) + model.embed.out.numel()
+    print(f"[lm_train] {cfg.name} at {LM_TRAIN_LAYERS} of {CONFIG.num_layers} layers: "
+          f"{n_params} parameters drawn with AdamW's state in {init_s:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+
+    events = []
+    step = trainer._train_step
+
+    def timed(opt, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(opt, batch)
+        end.record()
+        events.append((start, end))
+        return out
+
+    trainer._train_step = timed
+    fed = []
+
+    def feed():
+        for batch in T.lm_batches_from_table(table, s, b, decode_engine="torch"):
+            fed.append(batch)
+            yield batch
+
+    # the main path: counts set to 0 just before, read just after
+    build.LAUNCHES.reset()
+    t = time.perf_counter()
+    trainer.fit(feed(), held.pop())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    launches = build.LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [start.elapsed_time(end) for start, end in events]
+    losses = [m.loss for m in trainer.history]
+    norms = [m.grad_norm for m in trainer.history]
+    stall = trainer.stall_fraction()
+    print(f"[lm_train] main path launches {launches}", flush=True)
+    forward_only = {k: launches[k] for k in FORWARD_ONLY_KERNELS if launches.get(k, 0)}
+    if forward_only:
+        raise RuntimeError(f"a training step launched forward-only kernels {forward_only}")
+    if (launches.get("xor_decrypt", 0) < 1
+            or launches.get("xor_decrypt") != launches.get("ragged_gather_vec")
+            or launches.get("ragged_gather", 0)):
+        raise RuntimeError(f"the trainer's batches were not read through the decode "
+                           f"kernels once a stripe: {launches}")
+    if len(losses) != LM_TRAIN_STEPS or len(step_ms) != LM_TRAIN_STEPS:
+        raise RuntimeError(f"trained {len(losses)} steps, expected {LM_TRAIN_STEPS}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise RuntimeError(f"non-finite losses {losses} or grad norms {norms}")
+    if list(map(_digest, fed)) != list(map(_digest, ref[:len(fed)])):
+        raise RuntimeError("the trainer's batches differ from the numpy engine's")
+    median_ms = statistics.median(step_ms[1:])
+    tokens = b * s
+    h, d = cfg.num_heads, cfg.head_dim
+    model_flops = 6 * n_matmul * tokens + 6 * LM_TRAIN_LAYERS * b * h * s * s * d
+    print(f"[lm_train] {LM_TRAIN_STEPS} steps in {fit_s:.2f} s: step ms {step_ms} (CUDA "
+          f"events), median after the first {median_ms:.3f} ms, {tokens / median_ms * 1e3:.1f} "
+          f"tokens/s; model FLOPs a step {model_flops} ({model_flops / BF16_OPS_PER_S * 1e3:.3f} "
+          f"ms at the bf16 peak, share {model_flops / (median_ms / 1e3) / BF16_OPS_PER_S:.4f}); "
+          f"peak {peak / 1e9:.3f} GB; losses {losses}; grad norms {norms}; stall fraction "
+          f"{stall:.5f}", flush=True)
+    del trainer, model, step, timed
+    _free(torch)
+
+    attention = _train_attention_share(torch, cfg, median_ms)
+    flash_bwd = _flash_bwd_check(torch)
+    card_vs_cpu = _lm_train_card_vs_cpu(torch)
+    return {
+        "arch": cfg.name, "layers": LM_TRAIN_LAYERS, "batch": b, "seq": s,
+        "parameters": n_params, "corpus_batches": len(ref), "stripes": n_stripes,
+        "extract_launches": extract, "launches": launches, "init_s": init_s, "fit_s": fit_s,
+        "step_ms": step_ms, "median_step_ms": median_ms,
+        "tokens_per_s": tokens / median_ms * 1e3, "peak_bytes": peak, "losses": losses,
+        "grad_norms": norms, "stall_fraction": stall, "model_flops": model_flops,
+        "model_flops_share": model_flops / (median_ms / 1e3) / BF16_OPS_PER_S,
+        "attention": attention, "flash_bwd": flash_bwd, "card_vs_cpu": card_vs_cpu,
+    }
+
+
+def _train_attention_share(torch, cfg, step_ms):
+    """A training step's attention at its operands (B, S, H, D) over KVH
+    heads, bf16: ``_Flash``'s forward (run twice a step under remat: the
+    forward and its recompute) and forward + backward, CUDA events around
+    back-to-back calls; their share of ``step_ms``; SDPA's forward +
+    backward at the same operands beside them."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import attention as attn
+
+    b, s, h, kvh, d = (LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(torch.bfloat16)
+    dout = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    for x in (q, k, v):
+        x.requires_grad_()
+    scale = 1.0 / math.sqrt(d)
+    kr, vr = k.detach().repeat_interleave(h // kvh, dim=2), v.detach().repeat_interleave(
+        h // kvh, dim=2)
+
+    def forward():
+        attn._flash_fwd_impl(q.detach(), kr, vr, True, cfg.attn_chunk, cfg.attn_k_chunk, scale)
+
+    def both():
+        out = attn.blocked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
+                                     k_chunk=cfg.attn_k_chunk)
+        torch.autograd.grad(out, (q, k, v), dout)
+
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    dt = dout.transpose(1, 2)
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(out, (qt, kt, vt), dt)
+
+    fwd_ms = _call_ms(torch, forward, iters=5)
+    both_ms = _call_ms(torch, both, iters=5)
+    sdpa_ms = _call_ms(torch, sdpa, iters=5)
+    step_attn = LM_TRAIN_LAYERS * (fwd_ms + both_ms)
+    out = {"forward_ms": fwd_ms, "forward_backward_ms": both_ms, "sdpa_forward_backward_ms":
+           sdpa_ms, "a_step_ms": step_attn, "share_of_step": step_attn / step_ms}
+    print(f"[lm_train] attention at ({b}, {s}, {h}, {d}) over {kvh} KV heads, bf16: _Flash "
+          f"forward {fwd_ms:.3f} ms, forward + backward {both_ms:.3f} ms (SDPA's "
+          f"{sdpa_ms:.3f} ms); {LM_TRAIN_LAYERS} layers x (forward + recompute + backward) "
+          f"{step_attn:.3f} ms, {step_attn / step_ms:.4f} of a step", flush=True)
+    del q, k, v, kr, vr, dout, qt, kt, vt, dt
+    _free(torch)
+    return out
+
+
+def _flash_bwd_check(torch):
+    """``_Flash`` (``blocked_attention`` under autograd) on the card at
+    ``FLASH_BWD_Q`` over ``FLASH_BWD_KV_HEADS`` heads, bf16, causal,
+    against the same bf16 operands in float64 on the card: out, dq, dk and
+    dv each within ``FLASH_BWD_TOL`` of the float64 one in relative norm,
+    no kernel launched."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.models import attention as attn
+
+    b, s, h, d = FLASH_BWD_Q
+    rng = np.random.default_rng(7)
+    shapes = ((b, s, h, d), (b, s, FLASH_BWD_KV_HEADS, d), (b, s, FLASH_BWD_KV_HEADS, d))
+    ops_ = [torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(
+        "cuda", torch.bfloat16) for sh in shapes]
+    dout = torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32)).to(
+        "cuda", torch.bfloat16)
+    cq, ck = FLASH_BWD_CHUNKS
+    runs = []
+    build.LAUNCHES.reset()
+    for dtype in (torch.bfloat16, torch.float64):
+        x = [o.to(dtype).requires_grad_() for o in ops_]
+        out = attn.blocked_attention(*x, causal=True, chunk=cq, k_chunk=ck)
+        if type(out.grad_fn).__name__ != "_FlashBackward":
+            raise RuntimeError(f"blocked_attention under grad took {type(out.grad_fn)}")
+        runs.append([out.detach(), *torch.autograd.grad(out, x, dout.to(dtype))])
+    torch.cuda.synchronize()
+    if build.LAUNCHES.snapshot():
+        raise RuntimeError(f"the attention backward launched {build.LAUNCHES.snapshot()}")
+    rel = {}
+    for name, g, w in zip(("out", "dq", "dk", "dv"), *runs):
+        rel[name] = float((g.double() - w).norm() / w.norm())
+    print(f"[lm_train] _Flash at q {FLASH_BWD_Q} over {FLASH_BWD_KV_HEADS} KV heads, bf16, "
+          f"blocks {FLASH_BWD_CHUNKS}: relative to float64 {rel}", flush=True)
+    if not all(r <= FLASH_BWD_TOL for r in rel.values()):
+        raise RuntimeError(f"_Flash on the card is off float64 by {rel}")
+    return rel
+
+
+def _lm_train_card_vs_cpu(torch):
+    """One training step's loss and every gradient of a narrow qwen3
+    (``LM_TRAIN_NARROW``, float32, weights drawn on the card from seed 1)
+    on the card and on the CPU, and of the same weights in float64 on the
+    CPU, on one batch of (2, ``LM_TRAIN_NARROW_SEQ``) tokens: the card
+    within ``CARD_CPU_TOL`` of the float64 model, or within
+    ``F32_ERR_FACTOR`` times the CPU float32 model's own distance where
+    that is larger, each gradient in relative norm; no forward-only kernel
+    launched on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.qwen3_8b import CONFIG
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(CONFIG, **LM_TRAIN_NARROW)
+    rng = np.random.default_rng(5)
+    rows = rng.integers(0, cfg.vocab_size, (2, LM_TRAIN_NARROW_SEQ + 1)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(rows[:, :-1]), "labels": torch.from_numpy(rows[:, 1:])}
+    c32 = dataclasses.replace(cfg, param_dtype=torch.float32, compute_dtype=torch.float32)
+    c64 = dataclasses.replace(cfg, param_dtype=torch.float64, compute_dtype=torch.float64)
+    card = build_model(c32, device="cuda").init(1)
+    cpu = build_model(c32, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    cpu64 = build_model(c64, device="cpu")
+    cpu64.load_state_dict(card.state_dict())          # float32 leaves stay float32
+    runs = {}
+    for dev, model in (("cuda", card), ("cpu", cpu), ("cpu64", cpu64)):
+        build.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        names = sorted(n for n, _ in model.named_parameters())
+        loss = model.loss(batch)
+        grads = torch.autograd.grad(loss, [model.get_parameter(n) for n in names])
+        runs[dev] = (loss.detach().cpu().double(),
+                     {n: g.cpu().double() for n, g in zip(names, grads)},
+                     time.perf_counter() - t0)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            forward_only = {k: v for k, v in build.LAUNCHES.snapshot().items()
+                            if k in FORWARD_ONLY_KERNELS}
+            if forward_only:
+                raise RuntimeError(f"the card's training step launched {forward_only}")
+    del card, cpu, cpu64
+    _free(torch)
+    (gl, gg, gs), (cl, cg, cs), (wl, wg, ws) = runs["cuda"], runs["cpu"], runs["cpu64"]
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-300))
+
+    gaps = {"loss": (rel(gl, wl), rel(cl, wl))}
+    gaps.update({n: (rel(gg[n], wg[n]), rel(cg[n], wg[n])) for n in wg})
+    worst = max(gaps, key=lambda n: gaps[n][0])
+    print(f"[lm_train] card vs CPU, narrow qwen3 ({LM_TRAIN_NARROW}, seq "
+          f"{LM_TRAIN_NARROW_SEQ}), float32, one step: loss card {float(gl):.9f}, CPU "
+          f"{float(cl):.9f}, float64 {float(wl):.9f}; worst leaf {worst} card vs float64 "
+          f"{gaps[worst][0]:.3e} (CPU float32 {gaps[worst][1]:.3e}); card {gs:.2f} s, CPU "
+          f"{cs:.2f} s, CPU float64 {ws:.2f} s", flush=True)
+    bad = {n: g for n, g in gaps.items() if g[0] > max(CARD_CPU_TOL, F32_ERR_FACTOR * g[1])}
+    if bad:
+        raise RuntimeError(f"card vs CPU training step: {bad}")
+    return {"loss": {"card": float(gl), "cpu": float(cl), "f64": float(wl)},
+            "worst_leaf": worst, "worst_card_vs_f64": gaps[worst][0],
+            "worst_cpu_vs_f64": gaps[worst][1], "leaves": len(wg)}
+
+
 def main() -> int:
     torch, card = _setup()
     import numpy as np
@@ -4457,6 +4809,10 @@ def main() -> int:
     hybrid_encdec["card_vs_cpu"] = _hybrid_encdec_card_vs_cpu(torch)
     print(json.dumps({"hybrid_encdec": hybrid_encdec}), flush=True)
     print(f"[phase] hybrid and encoder-decoder {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = time.perf_counter()
+    print(json.dumps({"lm_train": _lm_train_path(torch)}), flush=True)
+    print(f"[phase] LM training {time.perf_counter() - t:.1f} s", flush=True)
     print(f"[phase] total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": results}))
     print(card)

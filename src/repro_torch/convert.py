@@ -233,37 +233,51 @@ def _array(t: torch.Tensor) -> np.ndarray:
 LM_STACKS = ("layers", "blocks", "enc_layers", "dec_layers")
 
 
+def stack_layers(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Flat LM leaves ``{stack}.{i}.{rest}`` (``stack`` in ``LM_STACKS``)
+    -> ``{stack}.{rest}`` stacked on axis 0 in layer order (``np.stack``
+    of numpy leaves, ``torch.stack`` of tensors); other names as they are."""
+    out: Dict[str, Any] = {}
+    per_layer: Dict[str, Dict[int, Any]] = {}
+    for name, leaf in flat.items():
+        stack, _, rest = name.partition(".")
+        i, _, leaf_name = rest.partition(".")
+        if stack in LM_STACKS and i.isdigit():
+            per_layer.setdefault(f"{stack}.{leaf_name}", {})[int(i)] = leaf
+        else:
+            out[name] = leaf
+    for name, leaves in per_layer.items():
+        layers = [leaves[i] for i in sorted(leaves)]
+        out[name] = (torch.stack(layers) if isinstance(layers[0], torch.Tensor)
+                     else np.stack(layers))
+    return out
+
+
+def unstack_layers(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Inverse of ``stack_layers``: a stacked leaf's layers as views."""
+    out: Dict[str, Any] = {}
+    for name, leaf in flat.items():
+        stack, _, rest = name.partition(".")
+        if stack in LM_STACKS:
+            for i in range(leaf.shape[0]):
+                out[f"{stack}.{i}.{rest}"] = leaf[i]
+        else:
+            out[name] = leaf
+    return out
+
+
 def lm_params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The reference's LM parameter tree (numpy leaves, each stack of
     ``LM_STACKS`` stacked on axis 0) -> the port's state dict (CPU tensors
     of the leaves' dtypes, a stack's leaf split into ``{stack}.{i}.*``),
     for ``model.load_state_dict``."""
-    out = {}
-    for name, leaf in _flatten(tree).items():
-        stack, _, rest = name.partition(".")
-        if stack in LM_STACKS:
-            for i in range(leaf.shape[0]):
-                out[f"{stack}.{i}.{rest}"] = _tensor(leaf[i])
-        else:
-            out[name] = _tensor(leaf)
-    return out
+    return {name: _tensor(leaf) for name, leaf in unstack_layers(_flatten(tree)).items()}
 
 
 def lm_params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
     """Inverse of ``lm_params_from_numpy``: the reference's nested tree of
     a port LM, each stack's layers stacked again."""
-    flat: Dict[str, Any] = {}
-    per_layer: Dict[str, Dict[int, np.ndarray]] = {}
-    for name, p in model.state_dict().items():
-        stack, _, rest = name.partition(".")
-        if stack in LM_STACKS:
-            i, _, rest = rest.partition(".")
-            per_layer.setdefault(f"{stack}.{rest}", {})[int(i)] = _array(p)
-        else:
-            flat[name] = p
-    for name, leaves in per_layer.items():
-        flat[name] = np.stack([leaves[i] for i in sorted(leaves)])
-    return _nest(flat)
+    return _nest(stack_layers({name: _array(p) for name, p in model.state_dict().items()}))
 
 
 def lm_cache_from_numpy(cache: Dict[str, Any]) -> Dict[str, torch.Tensor]:

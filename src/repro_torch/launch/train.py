@@ -3,14 +3,18 @@
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-paper --steps 50 --smoke
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --checkpoint-dir /path/to/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b --smoke --seq 128
 
 DLRM runs the full paper pipeline (synthetic warehouse partitions -> DPP
 extract/transform/load -> DLRM train steps), every stage on ``--device``
 (``cuda`` unless asked for ``cpu``).  ``dlrm_dpp_batches`` builds the
 synthetic warehouse and the DPP session the way the reference's
 ``repro.launch.train.dlrm_dpp_batches`` does and yields the tensor
-batches a trainer's client consumes.  Only ``dlrm-paper`` is ported; the
-LM archs come with their own slice.
+batches a trainer's client consumes.  An LM arch trains on
+``lm_synthetic_batches`` (``--seq`` tokens a row), as in the reference;
+``--arch`` takes ``dlrm-paper`` and every ``DecoderLM`` arch (dense, MoE,
+MLA, vision), not yet the SSM, hybrid or encoder-decoder ones, whose
+training forward is not ported.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from repro_torch.core.dpp import DPPSession, SessionSpec
 from repro_torch.core.schema import make_schema
 from repro_torch.core.transforms import default_dlrm_pipeline
 from repro_torch.core.warehouse import Table, Warehouse
+from repro_torch.models.common import ModelConfig
 from repro_torch.models.dlrm import DLRMConfig
 from repro_torch.optim import OptimizerConfig
 from repro_torch.train import Trainer, TrainerConfig
@@ -109,12 +114,46 @@ def dlrm_dpp_batches(
     return gen(), session
 
 
+def lm_synthetic_batches(cfg, batch_size: int, seq: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    while True:
+        toks = rng.integers(0, cfg.vocab_size, (batch_size, seq), dtype=np.int32)
+        batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+        if cfg.frontend == "vision":
+            batch["image_embeds"] = rng.normal(
+                0, 0.02, (batch_size, cfg.num_patches, cfg.d_model)
+            ).astype(np.float32)
+        if cfg.frontend == "audio":
+            batch["frames"] = rng.normal(
+                0, 0.02, (batch_size, seq, cfg.d_model)
+            ).astype(np.float32)
+            dec = max(seq // 8, 16)
+            dt = rng.integers(0, cfg.vocab_size, (batch_size, dec), dtype=np.int32)
+            batch["tokens"] = dt
+            batch["labels"] = np.roll(dt, -1, axis=1)
+        yield batch
+
+
+def _trains(cfg) -> bool:
+    """Whether the port trains ``cfg``: DLRM, or a ``DecoderLM`` config
+    (not SSM, hybrid or encoder-decoder)."""
+    if isinstance(cfg, DLRMConfig):
+        return True
+    return (isinstance(cfg, ModelConfig) and cfg.encoder_layers == 0
+            and cfg.family not in ("ssm", "hybrid"))
+
+
+TRAIN_ARCHS = [a for a in cfglib.ARCH_IDS if _trains(cfglib.get_config(a))]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dlrm-paper", choices=["dlrm-paper"],
-                    help="the port trains DLRM only; LM training is not ported")
+    ap.add_argument("--arch", default="dlrm-paper", choices=TRAIN_ARCHS,
+                    help="dlrm-paper or a decoder LM arch; the SSM, hybrid and "
+                         "encoder-decoder archs wait for their training forward")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch-size", type=int, default=64)
+    ap.add_argument("--seq", type=int, default=128, help="an LM row's tokens")
     ap.add_argument("--smoke", action="store_true", help="use the reduced config")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--checkpoint-dir", default=None,
@@ -136,21 +175,27 @@ def main(argv=None) -> int:
         ),
         device=args.device,
     )
-    batches, session = dlrm_dpp_batches(cfg, args.batch_size, device=args.device)
+    session = None
+    if isinstance(cfg, DLRMConfig):
+        batches, session = dlrm_dpp_batches(cfg, args.batch_size, device=args.device)
+    else:
+        batches = lm_synthetic_batches(cfg, args.batch_size, args.seq)
 
     t0 = time.time()
     try:
         state = trainer.fit(batches)
     finally:
-        session.stop()
+        if session is not None:
+            session.stop()
     wall = time.time() - t0
     losses = [m.loss for m in trainer.history]
     print(f"arch={cfg.name} device={trainer.device} steps={state['step']} wall_s={wall:.1f}")
     print(f"loss: first={losses[0]:.4f} last={losses[-1]:.4f}")
     print(f"data_stall_fraction={trainer.stall_fraction():.3f}")
-    m = session.worker_metrics()
-    print(f"dpp: storage_rx={m.storage_rx_bytes} tx={m.tx_bytes} "
-          f"breakdown={ {k: round(v, 3) for k, v in m.cycle_breakdown().items()} }")
+    if session is not None:
+        m = session.worker_metrics()
+        print(f"dpp: storage_rx={m.storage_rx_bytes} tx={m.tx_bytes} "
+              f"breakdown={ {k: round(v, 3) for k, v in m.cycle_breakdown().items()} }")
     return 0 if losses[-1] < losses[0] else 1
 
 

@@ -16,8 +16,10 @@ def build_model(cfg: Any, **kwargs) -> Union[DLRM, DecoderLM]:
     constructor (DLRM: ``tables``, ``seed``, ``device``; the LMs:
     ``device``).  In the reference's order: ``encoder_layers > 0`` builds
     an ``EncDecLM``, family "ssm" an ``SSMLM``, family "hybrid" a
-    ``HybridLM``, any other ``ModelConfig`` a ``DecoderLM``; a config the
-    model does not serve raises (``transformer.check_family``)."""
+    ``HybridLM``, any other ``ModelConfig`` a ``DecoderLM``; a feature
+    the model does not take is ignored, as in the reference, and a config
+    the reference's own constructors refuse raises ``ValueError``
+    (``transformer.check_family``)."""
     if isinstance(cfg, DLRMConfig):
         return DLRM(cfg, **kwargs)
     if isinstance(cfg, ModelConfig):

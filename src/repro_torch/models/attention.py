@@ -11,6 +11,18 @@ online softmax (``_flash_fwd_impl``) when the chunks divide S and T, the
 dense softmax (``_dense_attention``) otherwise.  ``decode_attention`` is plain tensor
 code on either device, as the reference computes it outside any kernel.
 
+Training differentiates through attention, and the CUDA kernels are
+forward-only (they return no log-sum-exp).  So when grad is enabled and
+an operand requires it, ``blocked_attention`` takes the reference's
+training routes on either device, decided from the operands before any
+launch: ``_dense_attention`` when the chunks do not divide, else
+``_Flash``, the reference's custom VJP (``_flash``) as a
+``torch.autograd.Function``: the blocked forward saving the LSE, and
+``_flash_bwd``'s blocked recompute backward, with ``p`` and ``ds``
+rounded to the operand dtype before their products and the row sums
+``delta`` in float32.  GQA's K/V are repeated to every query head before
+it, so autograd sums a group's gradients, as in the reference.
+
 MLA (DeepSeek-V2's multi-head latent attention) caches the compressed
 ``c_kv`` (B, S, kv_lora) and the shared rope key ``k_rope`` (B, S,
 rope).  Its prefill expands them to per-head keys and values, puts the
@@ -94,11 +106,13 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, S, H, D); k, v: (B, T, KVH, D).  Returns (B, S, H, D)."""
     d = q.shape[3]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
-    if q.device.type == "cuda":
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no attention for device {q.device}; expected cpu or cuda")
+    train = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
+    if q.device.type == "cuda" and not train:
         return ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                    causal=causal, scale=scale).transpose(1, 2)
-    if q.device.type != "cpu":
-        raise ValueError(f"no attention for device {q.device}; expected cpu or cuda")
     s, h = q.shape[1], q.shape[2]
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -109,12 +123,34 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if g > 1:                                    # jnp.repeat: head h reads h // g
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
-    return _flash_fwd_impl(q, k, v, causal, cq, ck, scale)
+    if train:
+        return _Flash.apply(q, k, v, causal, cq, ck, scale)
+    return _flash_fwd_impl(q, k, v, causal, cq, ck, scale)[0]
 
 
-def _flash_fwd_impl(q, k, v, causal: bool, cq: int, ck: int, scale: float) -> torch.Tensor:
+class _Flash(torch.autograd.Function):
+    """The reference's ``_flash`` custom VJP over (B, S, H, D) q and k, v
+    of as many heads: forward ``_flash_fwd_impl``, backward ``_flash_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, cq: int, ck: int, scale: float):
+        out, lse = _flash_fwd_impl(q, k, v, causal, cq, ck, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocks = (causal, cq, ck, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(*ctx.blocks, q, k, v, out, lse, dout)
+        return dq, dk, dv, None, None, None, None
+
+
+def _flash_fwd_impl(q, k, v, causal: bool, cq: int, ck: int,
+                    scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's blocked forward: q blocks of cq rows, each over k
-    blocks of ck rows with the online softmax carried in float32."""
+    blocks of ck rows with the online softmax carried in float32.
+    Returns the output (B, S, H, D) and the float32 LSE (B, H, S)."""
     b, s, h, d = q.shape
     t = k.shape[1]
     nq, nk = s // cq, t // ck
@@ -123,7 +159,7 @@ def _flash_fwd_impl(q, k, v, causal: bool, cq: int, ck: int, scale: float) -> to
     vb = v.reshape(b, nk, ck, h, d).permute(1, 0, 3, 2, 4)
     q_pos = torch.arange(cq, device=q.device)
     k_pos = torch.arange(ck, device=q.device)
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qc = qb[qi]
         m = torch.full((b, h, cq), NEG_INF, dtype=torch.float32, device=q.device)
@@ -142,8 +178,55 @@ def _flash_fwd_impl(q, k, v, causal: bool, cq: int, ck: int, scale: float) -> to
             acc = acc * alpha[..., None] + torch.einsum(
                 "bhqk,bhkd->bhqd", p.to(qc.dtype), vc).to(torch.float32)
             m = m_new
-        outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
-    return torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, s, h, d)
+        l = torch.clamp(l, min=1e-30)
+        outs.append((acc / l[..., None]).to(q.dtype))
+        lses.append(m + torch.log(l))                                   # (B,H,Cq)
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, s, h, d)
+    lse = torch.stack(lses).permute(1, 2, 0, 3).reshape(b, h, s)
+    return out, lse
+
+
+def _flash_bwd(causal: bool, cq: int, ck: int, scale: float, q, k, v, out, lse, dout):
+    """The reference's blocked backward: for each k block, over the q
+    blocks, p recomputed from the saved LSE; dk and dv carried in float32
+    a k block, dq summed in float32 over the k blocks."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    nq, nk = s // cq, t // ck
+    # row-wise D = sum(dout * out)
+    delta = torch.einsum("bshd,bshd->bhs", dout.to(torch.float32), out.to(torch.float32))
+    qb = q.reshape(b, nq, cq, h, d).permute(1, 0, 3, 2, 4)          # (nq,B,H,Cq,D)
+    dob = dout.reshape(b, nq, cq, h, d).permute(1, 0, 3, 2, 4)
+    lseb = lse.reshape(b, h, nq, cq).permute(2, 0, 1, 3)            # (nq,B,H,Cq)
+    deltab = delta.reshape(b, h, nq, cq).permute(2, 0, 1, 3)
+    kb = k.reshape(b, nk, ck, h, d).permute(1, 0, 3, 2, 4)          # (nk,B,H,Ck,D)
+    vb = v.reshape(b, nk, ck, h, d).permute(1, 0, 3, 2, 4)
+    q_pos = torch.arange(cq, device=q.device)
+    k_pos = torch.arange(ck, device=q.device)
+    dq = torch.zeros((nq, b, h, cq, d), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for kj in range(nk):
+        kc, vc = kb[kj], vb[kj]
+        dk = torch.zeros((b, h, ck, d), dtype=torch.float32, device=q.device)
+        dv = torch.zeros((b, h, ck, d), dtype=torch.float32, device=q.device)
+        for qi in range(nq):
+            qc, doc = qb[qi], dob[qi]
+            sc = torch.einsum("bhqd,bhkd->bhqk", qc, kc).to(torch.float32) * scale
+            if causal:
+                mask = (qi * cq + q_pos)[:, None] >= (kj * ck + k_pos)[None, :]
+                sc = torch.where(mask, sc, NEG_INF)
+            p = torch.exp(sc - lseb[qi][..., None])                   # (B,H,Cq,Ck)
+            dv = dv + torch.einsum("bhqk,bhqd->bhkd", p.to(doc.dtype), doc)
+            dp = torch.einsum("bhqd,bhkd->bhqk", doc, vc).to(torch.float32)
+            ds = (p * (dp - deltab[qi][..., None]) * scale).to(qc.dtype)
+            dq[qi] += torch.einsum("bhqk,bhkd->bhqd", ds, kc)
+            dk = dk + torch.einsum("bhqk,bhqd->bhkd", ds, qc)
+        dks.append(dk)
+        dvs.append(dv)
+    dq = dq.permute(1, 0, 3, 2, 4).reshape(b, s, h, d).to(q.dtype)
+    dk = torch.stack(dks).permute(1, 0, 3, 2, 4).reshape(b, t, h, d).to(k.dtype)
+    dv = torch.stack(dvs).permute(1, 0, 3, 2, 4).reshape(b, t, h, d).to(v.dtype)
+    return dq, dk, dv
 
 
 def _dense_attention(q, k, v, *, causal: bool, scale: float) -> torch.Tensor:

@@ -3,15 +3,18 @@
 Plain tensor functions over parameter tensors, with the reference's
 numerics: norms, rotary embeddings and the SwiGLU gate in float32, cast
 back to the activations' dtype; matrix products in the compute dtype
-(``torch.matmul``, as the reference leaves them to XLA).  The chunked
-cross-entropy of LM training is not ported yet.
+(``torch.matmul``, as the reference leaves them to XLA).
+``chunked_softmax_xent`` is LM training's loss over sequence chunks;
+under autograd each chunk runs inside ``torch.utils.checkpoint``, so the
+backward keeps no chunk's (B, C, V) logits and recomputes them instead.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import ModelConfig, ParamSpec
 
@@ -72,13 +75,52 @@ def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return _leaves(params)["tok"][tokens.long()].to(cfg.compute_dtype)
+    """The rows of ``tok`` (``F.embedding``: its backward sums a row's
+    gradients in a fixed order on the CPU, where indexing's does not)."""
+    return F.embedding(tokens.long(), _leaves(params)["tok"]).to(cfg.compute_dtype)
 
 
 def output_logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     p = _leaves(params)
     w = p["tok"].T if cfg.tie_embeddings else p["out"]
     return x @ w.to(cfg.compute_dtype)
+
+
+def chunked_softmax_xent(params, x: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
+                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy over (B, S, d_model) activations without
+    materializing the full (B, S, vocab) logits: a loop over sequence
+    chunks of ``cfg.logit_chunk`` (one chunk of S when that does not
+    divide S).  Each chunk's logits are computed in the compute dtype and
+    cast to float32; the sum of ``mask``-weighted NLLs is divided by
+    max(sum of the mask, 1)."""
+    b, s, d = x.shape
+    chunk = min(cfg.logit_chunk, s)
+    if s % chunk:
+        chunk = s  # fall back for odd smoke shapes
+    p = _leaves(params)
+    w = (p["tok"].T if cfg.tie_embeddings else p["out"]).to(cfg.compute_dtype)
+    if mask is None:
+        ms = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    else:
+        ms = mask.to(torch.float32)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, s, chunk):
+        args = (x[:, c:c + chunk], labels[:, c:c + chunk], ms[:, c:c + chunk], w)
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_xent_chunk, *args, use_reentrant=False)
+        else:
+            total = total + _xent_chunk(*args)
+    return total / torch.clamp(torch.sum(ms), min=1.0)
+
+
+def _xent_chunk(xc: torch.Tensor, lc: torch.Tensor, mc: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+    """One chunk's sum of masked NLLs: (B, C, d) @ (d, V) -> float32 logits."""
+    logits = (xc @ w).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return torch.sum((logz - gold) * mc)
 
 
 def _leaves(params) -> Dict[str, Any]:

@@ -6,7 +6,16 @@ and ``decode_step`` (one token against the cache).  A layer's attention
 is GQA or MLA (``cfg.mla``) and its FFN a SwiGLU MLP or a MoE
 (``cfg.moe``); the vision frontend (``cfg.frontend == "vision"``) puts
 the batch's ``image_embeds`` in place of the first ``num_patches``
-positions.  The training loss is not ported.
+positions.  ``loss`` is the training objective (chunked cross-entropy
+plus ``AUX_LOSS_COEF`` times the MoE layers' auxiliary loss, with the
+vision frontend's patch positions masked out): ``backbone`` runs
+``_layer_train`` over the layers, each inside ``torch.utils.checkpoint``
+when ``cfg.remat`` (the reference's ``jax.checkpoint``), so its attention
+takes the training route of ``attention.blocked_attention`` (the
+``_Flash`` backward, never the forward-only kernels).  ``prefill`` and
+``decode_step`` run under ``torch.no_grad()`` and launch the kernels.
+The SSM, hybrid and encoder-decoder models' training forward is not
+ported: their ``loss`` raises.
 ``repro_torch.models.ssm_lm.SSMLM``, ``hybrid.HybridLM`` and
 ``encdec.EncDecLM`` are ``DecoderLM``s with other parameter trees
 (``param_specs``, ``stacks``), caches and serving steps.
@@ -34,6 +43,7 @@ from typing import Any, Dict, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
@@ -47,37 +57,20 @@ from repro_torch.models.common import (
     stacked,
 )
 
-
-# the features each model of the port takes, by its ``family``: "dense"
-# ``DecoderLM``, "ssm" ``SSMLM``, "hybrid" ``HybridLM``, "encdec" ``EncDecLM``
-_FEATURES = {
-    "dense": {"MoE", "MLA", "the vision frontend"},
-    "ssm": {"SSM"},
-    "hybrid": {"MoE", "SSM"},
-    "encdec": {"the audio frontend"},
-}
+AUX_LOSS_COEF = 0.01
 
 
 def check_family(cfg: ModelConfig, family: str) -> None:
-    """Raise for a config that the port's model of ``family`` does not
-    serve.  ``NotImplementedError`` for a feature the model does not take:
-    ``DecoderLM`` takes MoE, MLA and the vision frontend, ``SSMLM`` the SSM
-    alone, ``HybridLM`` the SSM and MoE, ``EncDecLM`` the audio frontend.
-    The reference's models ignore a feature they do not take (its decoder
-    builds with an audio frontend and never reads the frames); refusing one
-    here is a guard against a config that would be served without it, not
-    a feature of the port.  ``ValueError`` for a config of another family:
-    an SSM model needs family "ssm" and an ``SSMConfig``; a hybrid one
-    family "hybrid", an ``SSMConfig`` and ``block_period > 0`` dividing
-    ``num_layers`` with ``attn_index`` in its block; an encoder-decoder
-    one ``encoder_layers > 0``, which no other model takes."""
-    has = {"MoE": cfg.moe is not None, "MLA": cfg.mla is not None,
-           "SSM": cfg.ssm is not None, f"the {cfg.frontend} frontend": cfg.frontend is not None}
-    missing = [what for what, present in has.items()
-               if present and what not in _FEATURES[family]]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not served by the port's {family} model")
+    """Raise ``ValueError`` for a config of another family than the
+    model's ``family``, where the reference's own constructors assert
+    (``HybridLM``, ``EncDecLM``): an SSM model needs family "ssm" and an
+    ``SSMConfig``; a hybrid one family "hybrid", an ``SSMConfig`` and
+    ``block_period > 0`` dividing ``num_layers`` with ``attn_index`` in
+    its block; an encoder-decoder one ``encoder_layers > 0``, which no
+    other model takes.  A feature a model does not take (the audio
+    frontend on a decoder-only config, MoE or MLA on an ``SSMLM``) is
+    ignored, as the reference's models ignore it: the parameter tree is
+    the reference's, without that feature's leaves."""
     wrong = None
     if (family == "encdec") != (cfg.encoder_layers > 0):
         wrong = "encoder_layers > 0 selects the encoder-decoder model, and only it"
@@ -180,7 +173,7 @@ class DecoderLM(nn.Module):
         return {name: torch.zeros(shape, dtype=dtype, device=self.device)
                 for name, (shape, dtype) in self.abstract_cache(batch, seq).items()}
 
-    # -- serving ------------------------------------------------------------
+    # -- inputs -------------------------------------------------------------
 
     def embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The tokens' embeddings (B, S, d); for the vision frontend the
@@ -202,6 +195,67 @@ class DecoderLM(nn.Module):
         if self.cfg.moe:
             return moe_lib.moe_forward(lp.ffn, hn, self.cfg)[0]
         return layers.mlp(lp.ffn, hn)
+
+    # -- training -----------------------------------------------------------
+
+    def _layer_train(self, lp, x: torch.Tensor, positions: torch.Tensor):
+        """One layer's training forward: (x, the layer's MoE aux loss)."""
+        cfg = self.cfg
+        h = layers.rmsnorm(x, lp.ln1, cfg.rms_eps)
+        if cfg.mla:
+            ctx, _ = attn.mla_prefill_attention(lp.attn, h, positions, cfg, cfg.attn_chunk)
+        else:
+            q, k, v = attn.gqa_project_qkv(lp.attn, h, positions, cfg)
+            o = attn.blocked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
+                                       k_chunk=cfg.attn_k_chunk)
+            ctx = attn.output_projection(o, lp.attn.wo)
+        x = x + ctx
+        h = layers.rmsnorm(x, lp.ln2, cfg.rms_eps)
+        if cfg.moe:
+            f, aux = moe_lib.moe_forward(lp.ffn, h, cfg)
+        else:
+            f, aux = layers.mlp(lp.ffn, h), torch.zeros((), dtype=torch.float32,
+                                                        device=x.device)
+        return x + f, aux
+
+    def backbone(self, x: torch.Tensor, positions: torch.Tensor):
+        """The layers over x (B, S, d), then the final norm: (x, the sum of
+        the layers' aux losses).  With ``cfg.remat`` each layer's
+        activations are recomputed in the backward."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in self.layers:
+            if cfg.remat and torch.is_grad_enabled():
+                x, aux_i = checkpoint(self._layer_train, lp, x, positions, use_reentrant=False)
+            else:
+                x, aux_i = self._layer_train(lp, x, positions)
+            aux = aux + aux_i
+        return layers.rmsnorm(x, self.ln_f, cfg.rms_eps), aux
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The training objective of ``batch["tokens"]`` against
+        ``batch["labels"]`` (B, S) (and ``batch["image_embeds"]`` for the
+        vision frontend, whose first ``num_patches`` positions the loss
+        masks out): a float32 scalar."""
+        cfg = self.cfg
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"{type(self).__name__}: the {self.family} model's training forward is not "
+                "ported; only the decoder LM (dense, MoE, MLA, vision) trains")
+        tokens = batch["tokens"].to(self.device)
+        b, s = tokens.shape
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        x = self.embed_inputs(batch)
+        x, aux = self.backbone(x, positions)
+        mask = None
+        if cfg.frontend == "vision":
+            mask = (torch.arange(s, device=self.device) >= cfg.num_patches)[None, :]
+            mask = mask.to(torch.float32).expand(b, s)
+        ce = layers.chunked_softmax_xent(self.embed, x, batch["labels"].to(self.device),
+                                         cfg, mask)
+        return ce + AUX_LOSS_COEF * aux
+
+    # -- serving ------------------------------------------------------------
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor]):

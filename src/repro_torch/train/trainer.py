@@ -1,4 +1,4 @@
-"""Training runtime: DPP-fed DLRM training on one device.
+"""Training runtime: DPP-fed DLRM and LM training on one device.
 
 The loop every trainer runs:
   batch = dpp_client.get_batch()   (data-stall accounted, Table 7 style)
@@ -24,6 +24,15 @@ A port of the reference's ``repro.train.trainer``.  The model, the
 optimizer state and the step run on ``device`` (``cuda`` unless the
 caller asks for the CPU); the store's tables and bookkeeping stay on the
 host.
+
+An LM config (``models.DecoderLM``: dense, MoE, MLA, vision) trains by
+the same dense step, ``model.loss`` differentiated by autograd and the
+reference's AdamW, on one device; its parameters are the model's by
+name (``layers.{i}.attn.wq``, ...).  Its checkpoint holds the
+reference's tree: each stack of ``convert.LM_STACKS`` stacked on axis 0
+again (``convert.stack_layers``), for the parameters and for
+``mu``/``nu``, so an LM checkpoint crosses between the packages as the
+DLRM one does.
 
 On a mesh (``mesh``, a ``launch.mesh.Mesh``; dense path only) every rank
 runs the loop: it holds its vocab slice of the tables
@@ -56,12 +65,12 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.convert import flatten, nest
+from repro_torch.convert import flatten, nest, stack_layers, unstack_layers
 from repro_torch.device import resolve
 from repro_torch.distributed.sharding import TRAIN_RULES
 from repro_torch.launch.steps import batch_axes, batch_shardings, shard_batch
 from repro_torch.models import build_model
-from repro_torch.models.dlrm import DLRM, vocab_rows
+from repro_torch.models.dlrm import DLRM, DLRMConfig, vocab_rows
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, counter, gauge
 from repro_torch.optim import OptimizerConfig, adamw_init, adamw_update, wsd_schedule
 
@@ -124,18 +133,22 @@ class Trainer:
         # the tables live in the store's host tier on the sparse path, so
         # the model holds only the dense/interaction MLPs there; on a mesh
         # the trainer holds the rank's slice of them beside the model
-        self._sparse = embedding_store is not None
+        dlrm = isinstance(model_cfg, DLRMConfig)
+        self._sparse = embedding_store is not None and dlrm
         self.mesh = mesh
         self.rules = rules
         if mesh is not None:
+            if not dlrm:
+                raise ValueError("Trainer(mesh=...) runs the sharded DLRM step; the sharded "
+                                 "LM step is not ported")
             if self._sparse:
                 raise ValueError("Trainer(mesh=...) runs the dense path; the tiered "
                                  "store's step runs on one device")
             if resolve(device, "Trainer").type != mesh.device.type:
                 raise ValueError(f"device {device} but the mesh's ranks are on {mesh.device}")
             device = mesh.device
-        self.model = build_model(model_cfg, tables=not self._sparse and mesh is None,
-                                 device=device)
+        kwargs = dict(tables=not self._sparse and mesh is None) if dlrm else {}
+        self.model = build_model(model_cfg, device=device, **kwargs)
         self.device = self.model.device
         self.tables: Optional[torch.Tensor] = None
         if mesh is not None:
@@ -166,7 +179,7 @@ class Trainer:
         return opt, gnorm
 
     def _dense_step(self, opt, batch: Dict[str, torch.Tensor]):
-        params = self.model.params()
+        params = self._live_params()
         loss = self.model.loss(batch)
         grads = torch.autograd.grad(loss, list(params.values()))
         opt, gnorm = self._apply(params, dict(zip(params, grads)), opt)
@@ -211,7 +224,10 @@ class Trainer:
 
     def _live_params(self) -> Dict[str, torch.Tensor]:
         """The parameters the step differentiates, by name in sorted order
-        (on a mesh, the rank's table slice among them)."""
+        (on a mesh, the rank's table slice among them; an LM's are its
+        named parameters)."""
+        if not isinstance(self.model, DLRM):
+            return dict(sorted(self.model.named_parameters()))
         params = self.model.params()
         if self.tables is not None:
             params = dict(sorted({**params, "tables": self.tables}.items()))
@@ -224,7 +240,10 @@ class Trainer:
         """Fresh weights from ``seed`` and a zero optimizer state.  On a
         mesh: the one-device weights (drawn whole on the host), sliced."""
         if self.mesh is None:
-            self.model.init_weights(seed)
+            if isinstance(self.model, DLRM):
+                self.model.init_weights(seed)
+            else:
+                self.model.init(seed)
             params = self._params()
             return {"params": params, "opt": adamw_init(params, self.opt_cfg), "step": 0}
         full = DLRM(self.model_cfg, seed=seed, device="cpu").params()
@@ -261,9 +280,13 @@ class Trainer:
     @staticmethod
     def checkpoint_tree(params: Dict[str, Any], opt: Dict[str, Any]) -> Dict[str, Any]:
         """The reference's checkpoint tree ``{"params", "opt"}`` of the
-        port's flat state: the dotted names nested, nothing transposed."""
-        return {"params": nest(params),
-                "opt": {"mu": nest(opt["mu"]), "nu": nest(opt["nu"]), "step": opt["step"]}}
+        port's flat state: the dotted names nested, nothing transposed; an
+        LM's layers (``{stack}.{i}.*`` of ``LM_STACKS``) stacked on axis 0."""
+        def tree(flat):
+            return nest(stack_layers(flat))
+
+        return {"params": tree(params),
+                "opt": {"mu": tree(opt["mu"]), "nu": tree(opt["nu"]), "step": opt["step"]}}
 
     def maybe_restore(self, state: Dict[str, Any]) -> Dict[str, Any]:
         """The newest complete checkpoint, loaded into the model and onto
@@ -273,10 +296,15 @@ class Trainer:
             params, opt = state["params"], state["opt"]
             if self.mesh is not None:
                 params, opt = self._whole(params, opt, shapes_only=True)
-            step, restored = self.ckpt.restore(self.checkpoint_tree(params, opt))
+            meta = {k: v.to("meta") for k, v in params.items()}
+            mu = {k: v.to("meta") for k, v in opt["mu"].items()}
+            nu = {k: v.to("meta") for k, v in opt["nu"].items()}
+            step, restored = self.ckpt.restore(
+                self.checkpoint_tree(meta, {"mu": mu, "nu": nu, "step": opt["step"]}))
             opt = restored["opt"]
-            params = flatten(restored["params"])
-            opt = {"mu": flatten(opt["mu"]), "nu": flatten(opt["nu"]), "step": opt["step"]}
+            params = unstack_layers(flatten(restored["params"]))
+            opt = {"mu": unstack_layers(flatten(opt["mu"])),
+                   "nu": unstack_layers(flatten(opt["nu"])), "step": opt["step"]}
             if self.mesh is not None:
                 params, opt = self._slice(params, opt)
             return self.load_state({"params": params, "opt": opt, "step": step})
@@ -354,6 +382,7 @@ class Trainer:
         state = self.load_state(state) if state is not None else self.init_state()
         state = self.maybe_restore(state)
         opt, step = state["opt"], state["step"]
+        del state       # the loop holds the state it steps, not the first one too
 
         it = iter(batches)
         while step < self.cfg.max_steps:

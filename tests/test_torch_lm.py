@@ -412,23 +412,25 @@ def _reference_change(change):
     dict(encoder_layers=2, frontend="audio"),
 ])
 def test_build_model_raises_for_unported_families(change):
-    """Every family is ported: the model builds, with the reference's
-    parameter names, shapes and dtypes (a leaf stacked on a leading axis
-    of n layers or blocks is each one's (...)).  A hybrid config without
-    an ``SSMConfig`` raises ``ValueError``; the audio frontend on a
-    decoder-only config raises ``NotImplementedError``, a guard: only the
-    encoder-decoder reads the frames (the reference's decoder builds and
-    ignores them)."""
+    """Every family is ported and every config the reference builds
+    builds: the model has the reference's parameter names, shapes and
+    dtypes (a leaf stacked on a leading axis of n layers or blocks is
+    each one's (...)).  A feature the model does not take is ignored, as
+    the reference ignores it: the audio frontend on a decoder-only config
+    builds the reference's decoder, which never reads the frames.  A
+    hybrid config without an ``SSMConfig`` raises ``ValueError``, where
+    the reference's own build fails."""
     cfg = dataclasses.replace(SMOKE, **change)
     if change.get("family") == "hybrid" and "ssm" not in change:
         with pytest.raises(ValueError, match="needs family 'hybrid', an SSMConfig"):
             build_model(cfg, device="cpu")
         return
-    if change == dict(frontend="audio"):
-        with pytest.raises(NotImplementedError, match="the audio frontend not served"):
-            build_model(cfg, device="cpu")
-        return
-    model = build_model(cfg, device="cpu")
+    _assert_reference_specs(build_model(cfg, device="cpu"), change)
+
+
+def _assert_reference_specs(model, change):
+    """``model``'s state dict has the names, shapes and dtypes of the
+    reference's ``param_specs`` for ``SMOKE`` with ``change``."""
     specs = j_build_model(dataclasses.replace(J_SMOKE, **_reference_change(change))
                           ).param_specs()
     want = {}
@@ -447,17 +449,24 @@ def test_build_model_raises_for_unported_families(change):
 
 def test_build_model_builds_ssm_family():
     """Family "ssm" (pure Mamba-2) is ported: ``build_model`` returns an
-    ``SSMLM``, and one with a feature the port does not have still
-    raises."""
+    ``SSMLM``, and one with features an SSM model does not take (MoE,
+    MLA, the vision frontend) builds the reference's SSM parameter tree
+    and ignores them, as the reference does."""
     from repro_torch.models import SSMLM
 
-    cfg = dataclasses.replace(SMOKE, family="ssm", ssm=SSMConfig(d_state=16, head_dim=16))
-    model = build_model(cfg, device="cpu")
+    ssm_change = dict(family="ssm", ssm=SSMConfig(d_state=16, head_dim=16))
+    model = build_model(dataclasses.replace(SMOKE, **ssm_change), device="cpu")
     assert isinstance(model, SSMLM)
     assert sorted(model.abstract_cache(2, 8)) == ["conv_B", "conv_C", "conv_x", "state"]
-    with pytest.raises(NotImplementedError, match="MoE not served by the port's ssm model"):
-        build_model(dataclasses.replace(cfg, moe=MoEConfig(num_experts=4, top_k=2, d_ff=64)),
-                    device="cpu")
+    _assert_reference_specs(model, ssm_change)
+    extra = dict(ssm_change, moe=MoEConfig(num_experts=4, top_k=2, d_ff=64),
+                 mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16,
+                               qk_rope_dim=8, v_head_dim=16),
+                 frontend="vision", num_patches=4)
+    model = build_model(dataclasses.replace(SMOKE, **extra), device="cpu")
+    assert isinstance(model, SSMLM)
+    assert sorted(model.abstract_cache(2, 8)) == ["conv_B", "conv_C", "conv_x", "state"]
+    _assert_reference_specs(model, extra)
 
 
 def test_cuda_entry_points_raise_without_cuda(monkeypatch):

@@ -146,10 +146,15 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax_and_nothing_of_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files += sorted((REPO / "benchmarks" / "torch").rglob("*.py"))
+    files += sorted((REPO / "examples" / "torch").rglob("*.py"))
     assert len(files) > 20
     covered = {p.parent.name for p in files}
     assert {"configs", "models", "optim", "train", "kernels", "core", "serving",
-            "launch"} <= covered
+            "launch", "torch"} <= covered
+    names = {str(p.relative_to(REPO)) for p in files}
+    assert {"src/repro_torch/core/tokens.py", "examples/torch/lm_data_pipeline.py",
+            "benchmarks/torch/ssd_routes.py"} <= names
     bad = []
     for path in files:
         for mod in _imported_modules(path):
