@@ -361,6 +361,31 @@ FORWARD_ONLY_KERNELS = ("flash_attention", "flash_attention_sm90", "ssd_chunk_fo
 # float32 sums in other orders, each off the float64 one by its own draw)
 CARD_CPU_TOL = 1e-3
 F32_ERR_FACTOR = 3
+# the LM families' training phase, bf16, seed 0, remat, LM_TRAIN_OPT's
+# AdamW, 6 steps of batch 2: mamba2-2.7b at every published width, its
+# depth cut from 64 layers to 32 (PERF.md section 4: 1,544,194,048
+# parameters; 64 reckon to ~70-74 GB at the 24.5 B a parameter measured
+# for qwen3), on 4096-token rows from the DWRF token corpus; seamless-m4t-
+# large-v2 whole (2,034,784,256 parameters) on 4096 frames and 512 decoder
+# tokens a row from lm_synthetic_batches
+MAMBA_TRAIN_LAYERS = 32
+SSM_MATMULS = ("wz", "wx", "wB", "wC", "wdt", "out")    # a mixer's matrix products
+# the SSD backward alone at mamba2-2.7b's layer shape, bf16: y and the
+# gradients of x, dt, A, B and C within 2e-2 of a float64 run's in relative
+# norm, as _Flash is held (FLASH_BWD_TOL)
+SSD_BWD_X, SSD_BWD_N, SSD_BWD_CHUNK = (2, 4096, 80, 64), 128, 256
+# one step on the card against the CPU, float32: mamba2 at 2 layers, d_model
+# 256 and chunk 64 on 256 tokens (4 chunks), and the SMOKE configs of
+# jamba (attention, SSM and MoE in one block), seamless and deepseek-v2
+# (MoE and MLA).  The init takes a stack's length as the fan-in of every
+# "scaled" leaf, as the reference's does: a router's softmax saturates and
+# ties top-k probabilities within 1e-9, and without qk_norm the attention
+# scores reach ~60, a one-hot softmax whose float32 gradients sit 4e-3 to
+# 8e-3 from float64 on either device.  So, as the CPU tests do, routers are
+# scaled by 0.1 and, where the config has no qk_norm, wq and wk by 1/8
+MAMBA_TRAIN_NARROW = dict(num_layers=2, d_model=256, vocab_size=2048)
+MAMBA_TRAIN_NARROW_CHUNK = 64
+TRAIN_ROUTER_SCALE, TRAIN_QK_SCALE = 0.1, 0.125
 # the data-path kernels every DPP session launches on the card, and the
 # general routes of three of them, which no engine operand takes
 DATA_PATH_KERNELS = ("xor_decrypt", "dense_unpack_warp", "ragged_gather_vec",
@@ -4330,6 +4355,128 @@ def _hybrid_encdec_card_vs_cpu(torch):
     return result
 
 
+def _token_corpus(torch, vocab, b, s, tag):
+    """A ``core.tokens.build_corpus`` table of ``LM_TRAIN_PARTITIONS`` x
+    ``LM_TRAIN_DOCS`` documents at ``vocab``, and its (b, s) batches read
+    by the numpy engine; then the whole corpus read through the decode
+    kernels with the counts set to 0 just before: one ``xor_decrypt`` and
+    one ``ragged_gather_vec`` launch a stripe, the scalar route never, and
+    every batch byte-identical to the numpy engine's.  Returns (table, the
+    numpy engine's batches, stripes, extract's launches)."""
+    from repro_torch.core import tokens as T
+    from repro_torch.core.warehouse import Warehouse
+    from repro_torch.kernels import build
+
+    t = time.perf_counter()
+    table = T.build_corpus(Warehouse(), LM_TRAIN_PARTITIONS, LM_TRAIN_DOCS, vocab, seed=0)
+    n_stripes = sum(len(p.footer.stripes) for p in table.partitions.values())
+    ref = list(T.lm_batches_from_table(table, s, b))
+    corpus_s = time.perf_counter() - t
+
+    # the whole corpus through the decode kernels: counts set to 0 just before
+    build.LAUNCHES.reset()
+    t = time.perf_counter()
+    got = list(T.lm_batches_from_table(table, s, b, decode_engine="torch"))
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t
+    extract = build.LAUNCHES.snapshot()
+    print(f"[{tag}] corpus: {table.total_rows} documents, {table.total_bytes} B in "
+          f"{n_stripes} stripes, {len(ref)} batches of {b} x {s} tokens ({corpus_s:.2f} s "
+          f"with the numpy engine's read); the torch engine's read {extract_s:.2f} s, "
+          f"launches {extract}", flush=True)
+    for name in ("xor_decrypt", "ragged_gather_vec"):
+        if extract.get(name, 0) != n_stripes:
+            raise RuntimeError(f"extract launched {name} {extract.get(name, 0)} times, "
+                               f"expected one a stripe ({n_stripes})")
+    if extract.get("ragged_gather", 0):
+        raise RuntimeError(f"extract launched ragged_gather's scalar route "
+                           f"{extract['ragged_gather']} times")
+    if list(map(_digest, got)) != list(map(_digest, ref)) or len(ref) < LM_TRAIN_STEPS:
+        raise RuntimeError("the torch engine's token batches differ from the numpy engine's")
+    print(f"[{tag}] token batches byte-identical to the numpy engine's", flush=True)
+    return table, ref, n_stripes, extract
+
+
+def _lm_trainer(torch, cfg, tag, label):
+    """A ``Trainer`` of ``cfg`` on the card at ``LM_TRAIN_OPT``, its state
+    drawn from seed 0 with the peak memory counted from 0: returns it, the
+    state in a list (``_timed_fit`` pops it), the parameter count and the
+    draw's seconds."""
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    trainer = Trainer(cfg, OptimizerConfig(**LM_TRAIN_OPT),
+                      TrainerConfig(max_steps=LM_TRAIN_STEPS), device="cuda")
+    held = [trainer.init_state(0)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    print(f"[{tag}] {label}: {n_params} parameters drawn with AdamW's state in "
+          f"{init_s:.2f} s, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+    return trainer, held, n_params, init_s
+
+
+def _timed_fit(torch, trainer, held, batches, steps, tag):
+    """``trainer.fit(batches, held.pop())`` with CUDA events around each
+    step and the counts set to 0 just before and read just after; fails if
+    a forward-only kernel (``FORWARD_ONLY_KERNELS``) was launched, if it
+    took another number of steps than ``steps`` or if a loss or grad norm
+    is not finite.  Returns the launches, fit's wall seconds, the peak
+    memory, the step times (ms), losses, grad norms and stall fraction."""
+    from repro_torch.kernels import build
+
+    events = []
+    step = trainer._train_step
+
+    def timed(opt, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(opt, batch)
+        end.record()
+        events.append((start, end))
+        return out
+
+    trainer._train_step = timed
+    # the main path: counts set to 0 just before, read just after
+    build.LAUNCHES.reset()
+    t = time.perf_counter()
+    trainer.fit(batches, held.pop())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    launches = build.LAUNCHES.snapshot()
+    trainer._train_step = step
+    run = {"launches": launches, "fit_s": fit_s, "peak": torch.cuda.max_memory_allocated(),
+           "step_ms": [start.elapsed_time(end) for start, end in events],
+           "losses": [m.loss for m in trainer.history],
+           "norms": [m.grad_norm for m in trainer.history],
+           "stall": trainer.stall_fraction()}
+    print(f"[{tag}] main path launches {launches}", flush=True)
+    forward_only = {k: launches[k] for k in FORWARD_ONLY_KERNELS if launches.get(k, 0)}
+    if forward_only:
+        raise RuntimeError(f"a training step launched forward-only kernels {forward_only}")
+    if len(run["losses"]) != steps or len(run["step_ms"]) != steps:
+        raise RuntimeError(f"trained {len(run['losses'])} steps, expected {steps}")
+    if not all(math.isfinite(x) for x in run["losses"] + run["norms"]):
+        raise RuntimeError(f"non-finite losses {run['losses']} or grad norms {run['norms']}")
+    return run
+
+
+def _read_through_decode_kernels(launches, fed, ref):
+    """The batches a training run took came through the decode kernels
+    once a stripe, ``xor_decrypt`` and ``ragged_gather_vec`` alike and the
+    scalar route never, and equal the numpy engine's."""
+    if (launches.get("xor_decrypt", 0) < 1
+            or launches.get("xor_decrypt") != launches.get("ragged_gather_vec")
+            or launches.get("ragged_gather", 0)):
+        raise RuntimeError(f"the trainer's batches were not read through the decode "
+                           f"kernels once a stripe: {launches}")
+    if list(map(_digest, fed)) != list(map(_digest, ref[:len(fed)])):
+        raise RuntimeError("the trainer's batches differ from the numpy engine's")
+
+
 def _lm_train_path(torch):
     """Full-width qwen3-8b, its depth cut to ``LM_TRAIN_LAYERS`` of 36,
     trained ``LM_TRAIN_STEPS`` steps by the port's ``Trainer`` from a DWRF
@@ -4353,70 +4500,16 @@ def _lm_train_path(torch):
 
     from repro_torch.configs.qwen3_8b import CONFIG
     from repro_torch.core import tokens as T
-    from repro_torch.core.warehouse import Warehouse
-    from repro_torch.kernels import build
-    from repro_torch.optim import OptimizerConfig
-    from repro_torch.train import Trainer, TrainerConfig
 
     _free(torch)
     cfg = dataclasses.replace(CONFIG, num_layers=LM_TRAIN_LAYERS)
     b, s = LM_TRAIN_BATCH, LM_TRAIN_SEQ
-    t = time.perf_counter()
-    table = T.build_corpus(Warehouse(), LM_TRAIN_PARTITIONS, LM_TRAIN_DOCS, cfg.vocab_size,
-                           seed=0)
-    n_stripes = sum(len(p.footer.stripes) for p in table.partitions.values())
-    ref = list(T.lm_batches_from_table(table, s, b))
-    corpus_s = time.perf_counter() - t
-
-    # the whole corpus through the decode kernels: counts set to 0 just before
-    build.LAUNCHES.reset()
-    t = time.perf_counter()
-    got = list(T.lm_batches_from_table(table, s, b, decode_engine="torch"))
-    torch.cuda.synchronize()
-    extract_s = time.perf_counter() - t
-    extract = build.LAUNCHES.snapshot()
-    print(f"[lm_train] corpus: {table.total_rows} documents, {table.total_bytes} B in "
-          f"{n_stripes} stripes, {len(ref)} batches of {b} x {s} tokens ({corpus_s:.2f} s "
-          f"with the numpy engine's read); the torch engine's read {extract_s:.2f} s, "
-          f"launches {extract}", flush=True)
-    for name in ("xor_decrypt", "ragged_gather_vec"):
-        if extract.get(name, 0) != n_stripes:
-            raise RuntimeError(f"extract launched {name} {extract.get(name, 0)} times, "
-                               f"expected one a stripe ({n_stripes})")
-    if extract.get("ragged_gather", 0):
-        raise RuntimeError(f"extract launched ragged_gather's scalar route "
-                           f"{extract['ragged_gather']} times")
-    if list(map(_digest, got)) != list(map(_digest, ref)) or len(ref) < LM_TRAIN_STEPS:
-        raise RuntimeError("the torch engine's token batches differ from the numpy engine's")
-    print("[lm_train] token batches byte-identical to the numpy engine's", flush=True)
-
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    trainer = Trainer(cfg, OptimizerConfig(**LM_TRAIN_OPT),
-                      TrainerConfig(max_steps=LM_TRAIN_STEPS), device="cuda")
-    held = [trainer.init_state(0)]
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t
+    table, ref, n_stripes, extract = _token_corpus(torch, cfg.vocab_size, b, s, "lm_train")
+    trainer, held, n_params, init_s = _lm_trainer(
+        torch, cfg, "lm_train", f"{cfg.name} at {LM_TRAIN_LAYERS} of {CONFIG.num_layers} layers")
     model = trainer.model
-    n_params = sum(p.numel() for p in model.parameters())
     n_matmul = sum(p.numel() for p in model.layers.parameters()) + model.embed.out.numel()
-    print(f"[lm_train] {cfg.name} at {LM_TRAIN_LAYERS} of {CONFIG.num_layers} layers: "
-          f"{n_params} parameters drawn with AdamW's state in {init_s:.2f} s, peak "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
 
-    events = []
-    step = trainer._train_step
-
-    def timed(opt, batch):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = step(opt, batch)
-        end.record()
-        events.append((start, end))
-        return out
-
-    trainer._train_step = timed
     fed = []
 
     def feed():
@@ -4424,33 +4517,10 @@ def _lm_train_path(torch):
             fed.append(batch)
             yield batch
 
-    # the main path: counts set to 0 just before, read just after
-    build.LAUNCHES.reset()
-    t = time.perf_counter()
-    trainer.fit(feed(), held.pop())
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t
-    launches = build.LAUNCHES.snapshot()
-    peak = torch.cuda.max_memory_allocated()
-    step_ms = [start.elapsed_time(end) for start, end in events]
-    losses = [m.loss for m in trainer.history]
-    norms = [m.grad_norm for m in trainer.history]
-    stall = trainer.stall_fraction()
-    print(f"[lm_train] main path launches {launches}", flush=True)
-    forward_only = {k: launches[k] for k in FORWARD_ONLY_KERNELS if launches.get(k, 0)}
-    if forward_only:
-        raise RuntimeError(f"a training step launched forward-only kernels {forward_only}")
-    if (launches.get("xor_decrypt", 0) < 1
-            or launches.get("xor_decrypt") != launches.get("ragged_gather_vec")
-            or launches.get("ragged_gather", 0)):
-        raise RuntimeError(f"the trainer's batches were not read through the decode "
-                           f"kernels once a stripe: {launches}")
-    if len(losses) != LM_TRAIN_STEPS or len(step_ms) != LM_TRAIN_STEPS:
-        raise RuntimeError(f"trained {len(losses)} steps, expected {LM_TRAIN_STEPS}")
-    if not all(math.isfinite(x) for x in losses + norms):
-        raise RuntimeError(f"non-finite losses {losses} or grad norms {norms}")
-    if list(map(_digest, fed)) != list(map(_digest, ref[:len(fed)])):
-        raise RuntimeError("the trainer's batches differ from the numpy engine's")
+    run = _timed_fit(torch, trainer, held, feed(), LM_TRAIN_STEPS, "lm_train")
+    launches, fit_s, peak, step_ms, losses, norms, stall = (
+        run[k] for k in ("launches", "fit_s", "peak", "step_ms", "losses", "norms", "stall"))
+    _read_through_decode_kernels(launches, fed, ref)
     median_ms = statistics.median(step_ms[1:])
     tokens = b * s
     h, d = cfg.num_heads, cfg.head_dim
@@ -4461,7 +4531,7 @@ def _lm_train_path(torch):
           f"ms at the bf16 peak, share {model_flops / (median_ms / 1e3) / BF16_OPS_PER_S:.4f}); "
           f"peak {peak / 1e9:.3f} GB; losses {losses}; grad norms {norms}; stall fraction "
           f"{stall:.5f}", flush=True)
-    del trainer, model, step, timed
+    del trainer, model
     _free(torch)
 
     attention = _train_attention_share(torch, cfg, median_ms)
@@ -4575,50 +4645,98 @@ def _flash_bwd_check(torch):
 def _lm_train_card_vs_cpu(torch):
     """One training step's loss and every gradient of a narrow qwen3
     (``LM_TRAIN_NARROW``, float32, weights drawn on the card from seed 1)
-    on the card and on the CPU, and of the same weights in float64 on the
-    CPU, on one batch of (2, ``LM_TRAIN_NARROW_SEQ``) tokens: the card
-    within ``CARD_CPU_TOL`` of the float64 model, or within
-    ``F32_ERR_FACTOR`` times the CPU float32 model's own distance where
-    that is larger, each gradient in relative norm; no forward-only kernel
-    launched on the card."""
+    on the card against the CPU (``_step_card_vs_cpu``), on one batch of
+    (2, ``LM_TRAIN_NARROW_SEQ``) tokens."""
     import dataclasses
 
     import numpy as np
 
     from repro_torch.configs.qwen3_8b import CONFIG
-    from repro_torch.kernels import build
-    from repro_torch.models import build_model
 
     cfg = dataclasses.replace(CONFIG, **LM_TRAIN_NARROW)
     rng = np.random.default_rng(5)
     rows = rng.integers(0, cfg.vocab_size, (2, LM_TRAIN_NARROW_SEQ + 1)).astype(np.int32)
     batch = {"tokens": torch.from_numpy(rows[:, :-1]), "labels": torch.from_numpy(rows[:, 1:])}
+    return _step_card_vs_cpu(torch, cfg, batch, "lm_train",
+                             f"narrow qwen3 ({LM_TRAIN_NARROW}, seq {LM_TRAIN_NARROW_SEQ})")
+
+
+def _step_card_vs_cpu(torch, cfg, batch, tag, label):
+    """One training step's loss and every gradient of ``cfg`` in float32
+    (weights drawn on the card from seed 1; a MoE router scaled by
+    ``TRAIN_ROUTER_SCALE``, and without qk_norm every ``wq`` and ``wk`` by
+    ``TRAIN_QK_SCALE``) on the card and on the CPU, and of the same
+    weights in float64 on the CPU, on ``batch``: the card within
+    ``CARD_CPU_TOL`` of the float64 model, or within ``F32_ERR_FACTOR``
+    times the CPU float32 model's own distance where that is larger, each
+    gradient in relative norm; no forward-only kernel launched on the
+    card.  A MoE model's routing is recorded in each run: a token whose
+    chosen experts differ from the float64 run's is a flip, which must sit
+    at a top-k margin under ``ROUTE_FLIP_MARGIN``; a run with a flip is
+    reported and its gradients are not held (a flipped token's expert
+    gradients differ by construction)."""
+    import dataclasses
+
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+
     c32 = dataclasses.replace(cfg, param_dtype=torch.float32, compute_dtype=torch.float32)
     c64 = dataclasses.replace(cfg, param_dtype=torch.float64, compute_dtype=torch.float64)
     card = build_model(c32, device="cuda").init(1)
+    scales = {"router": TRAIN_ROUTER_SCALE} if cfg.moe else {}
+    if not cfg.qk_norm:
+        scales.update(wq=TRAIN_QK_SCALE, wk=TRAIN_QK_SCALE)
+    with torch.no_grad():
+        for name, p in card.named_parameters():
+            p.mul_(scales.get(name.rsplit(".", 1)[-1], 1.0))
     cpu = build_model(c32, device="cpu")
     cpu.load_state_dict(card.state_dict())
     cpu64 = build_model(c64, device="cpu")
     cpu64.load_state_dict(card.state_dict())          # float32 leaves stay float32
+    original = moe_lib.route
+    records = []
+
+    def recording(router_w, x, m):
+        idx, gates, aux = original(router_w, x, m)
+        k = m.top_k
+        with torch.no_grad():
+            top = torch.topk(torch.softmax(x.to(m.router_dtype) @ router_w, dim=-1), k + 1,
+                             dim=-1).values
+        records.append((idx.cpu(), (top[:, k - 1] - top[:, k]).cpu()))
+        return idx, gates, aux
+
     runs = {}
-    for dev, model in (("cuda", card), ("cpu", cpu), ("cpu64", cpu64)):
-        build.LAUNCHES.reset()
-        t0 = time.perf_counter()
-        names = sorted(n for n, _ in model.named_parameters())
-        loss = model.loss(batch)
-        grads = torch.autograd.grad(loss, [model.get_parameter(n) for n in names])
-        runs[dev] = (loss.detach().cpu().double(),
-                     {n: g.cpu().double() for n, g in zip(names, grads)},
-                     time.perf_counter() - t0)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            forward_only = {k: v for k, v in build.LAUNCHES.snapshot().items()
-                            if k in FORWARD_ONLY_KERNELS}
-            if forward_only:
-                raise RuntimeError(f"the card's training step launched {forward_only}")
+    moe_lib.route = recording
+    try:
+        for dev, model in (("cuda", card), ("cpu", cpu), ("cpu64", cpu64)):
+            records.clear()
+            build.LAUNCHES.reset()
+            t0 = time.perf_counter()
+            names = sorted(n for n, _ in model.named_parameters())
+            loss = model.loss(batch)
+            grads = torch.autograd.grad(loss, [model.get_parameter(n) for n in names])
+            runs[dev] = (loss.detach().cpu().double(),
+                         {n: g.cpu().double() for n, g in zip(names, grads)},
+                         time.perf_counter() - t0, list(records))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                forward_only = {k: v for k, v in build.LAUNCHES.snapshot().items()
+                                if k in FORWARD_ONLY_KERNELS}
+                if forward_only:
+                    raise RuntimeError(f"the card's training step launched {forward_only}")
+    finally:
+        moe_lib.route = original
     del card, cpu, cpu64
     _free(torch)
-    (gl, gg, gs), (cl, cg, cs), (wl, wg, ws) = runs["cuda"], runs["cpu"], runs["cpu64"]
+    (gl, gg, gs, gr), (cl, cg, cs, cr), (wl, wg, ws, wr) = (
+        runs["cuda"], runs["cpu"], runs["cpu64"])
+    flips = []
+    for side, routes in (("card", gr), ("cpu", cr)):
+        for call, ((gi, gm), (wi, _)) in enumerate(zip(routes, wr)):
+            flips += [{"side": side, "call": call, "token": i, "margin": float(gm[i])}
+                      for i in range(gi.shape[0])
+                      if set(gi[i].tolist()) != set(wi[i].tolist())]
 
     def rel(a, b):
         return float((a - b).norm() / b.norm().clamp(min=1e-300))
@@ -4626,17 +4744,274 @@ def _lm_train_card_vs_cpu(torch):
     gaps = {"loss": (rel(gl, wl), rel(cl, wl))}
     gaps.update({n: (rel(gg[n], wg[n]), rel(cg[n], wg[n])) for n in wg})
     worst = max(gaps, key=lambda n: gaps[n][0])
-    print(f"[lm_train] card vs CPU, narrow qwen3 ({LM_TRAIN_NARROW}, seq "
-          f"{LM_TRAIN_NARROW_SEQ}), float32, one step: loss card {float(gl):.9f}, CPU "
+    routing = (f"; {len(gr)} routing calls, flips {len(flips)}, smallest margin "
+               f"{min(float(m.min()) for _, m in gr):.3e}" if gr else "")
+    print(f"[{tag}] card vs CPU, {label}, float32, one step: loss card {float(gl):.9f}, CPU "
           f"{float(cl):.9f}, float64 {float(wl):.9f}; worst leaf {worst} card vs float64 "
           f"{gaps[worst][0]:.3e} (CPU float32 {gaps[worst][1]:.3e}); card {gs:.2f} s, CPU "
-          f"{cs:.2f} s, CPU float64 {ws:.2f} s", flush=True)
+          f"{cs:.2f} s, CPU float64 {ws:.2f} s{routing}", flush=True)
+    bad_flips = [f for f in flips if f["margin"] >= ROUTE_FLIP_MARGIN]
+    if bad_flips:
+        raise RuntimeError(f"card vs CPU training step, {label}: expert choices differ at "
+                           f"margins >= {ROUTE_FLIP_MARGIN}: {bad_flips[:4]}")
     bad = {n: g for n, g in gaps.items() if g[0] > max(CARD_CPU_TOL, F32_ERR_FACTOR * g[1])}
-    if bad:
+    if bad and not flips:
         raise RuntimeError(f"card vs CPU training step: {bad}")
     return {"loss": {"card": float(gl), "cpu": float(cl), "f64": float(wl)},
             "worst_leaf": worst, "worst_card_vs_f64": gaps[worst][0],
-            "worst_cpu_vs_f64": gaps[worst][1], "leaves": len(wg)}
+            "worst_cpu_vs_f64": gaps[worst][1], "leaves": len(wg),
+            **({"routing_calls": len(gr), "flips": flips, "held": not flips} if gr else {})}
+
+
+def _lm_train_families_path(torch):
+    """The SSM and encoder-decoder families trained by the port's
+    ``Trainer`` at full width.  ``mamba2-2.7b``, its depth cut to
+    ``MAMBA_TRAIN_LAYERS`` of 64, on 6 batches of (2, 4096) tokens from a
+    DWRF token corpus read through the decode kernels (``_token_corpus``
+    first reads the whole corpus: one ``xor_decrypt`` and one
+    ``ragged_gather_vec`` a stripe, the batches the numpy engine's); then
+    ``seamless-m4t-large-v2`` whole on 6 batches of 4096 frames and 512
+    decoder tokens from ``lm_synthetic_batches``.  Each run sets the counts
+    to 0 just before and reads them just after (``_timed_fit``): no
+    forward-only kernel, finite losses and grad norms; mamba2's batches
+    read through the decode kernels once a stripe and byte-identical to
+    the numpy engine's.  Model FLOPs of a step: 6 x the matrix products'
+    parameters x the tokens they see (seamless: the encoder's, the cross-
+    attention's K/V projections' at the frames, the rest at the decoder's
+    tokens) plus 3 x the forward's scan or attention products (mamba2: the
+    SSD's causal halves, ``_ssd_bound``; seamless: 4 B H S T D a full
+    attention, half a causal one).  Then the SSD's share of a mamba2 step
+    (``_train_ssd_share``), the SSD backward against float64
+    (``_ssd_bwd_check``) and one narrow step on the card against the CPU
+    for four families (``_train_families_card_vs_cpu``)."""
+    import dataclasses
+
+    from repro_torch.configs import mamba2_2p7b, seamless_m4t_v2
+    from repro_torch.core import tokens as T
+    from repro_torch.launch.train import lm_synthetic_batches
+
+    tag = "lm_train_families"
+    b, s = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    out = {}
+
+    def trainer_for(cfg):
+        _free(torch)
+        trainer, held, n_params, init_s = _lm_trainer(torch, cfg, tag,
+                                                      f"{cfg.name}, {cfg.num_layers} layers")
+        return trainer, held, {"parameters": n_params, "init_s": init_s}
+
+    def summary(cfg, run, tokens, model_flops, row):
+        median_ms = statistics.median(run["step_ms"][1:])
+        share = model_flops / (median_ms / 1e3) / BF16_OPS_PER_S
+        print(f"[{tag}] {cfg.name}: {LM_TRAIN_STEPS} steps in {run['fit_s']:.2f} s: step ms "
+              f"{run['step_ms']} (CUDA events), median after the first {median_ms:.3f} ms, "
+              f"{tokens / median_ms * 1e3:.1f} tokens/s; model FLOPs a step {model_flops} "
+              f"({model_flops / BF16_OPS_PER_S * 1e3:.3f} ms at the bf16 peak, share "
+              f"{share:.4f}); peak {run['peak'] / 1e9:.3f} GB; losses {run['losses']}; grad "
+              f"norms {run['norms']}; stall fraction {run['stall']:.5f}", flush=True)
+        row.update({"arch": cfg.name, "layers": cfg.num_layers, "batch": b,
+                    "launches": run["launches"], "fit_s": run["fit_s"],
+                    "step_ms": run["step_ms"], "median_step_ms": median_ms,
+                    "tokens": tokens, "tokens_per_s": tokens / median_ms * 1e3,
+                    "peak_bytes": run["peak"], "losses": run["losses"],
+                    "grad_norms": run["norms"], "stall_fraction": run["stall"],
+                    "model_flops": model_flops, "model_flops_share": share})
+        return median_ms
+
+    # mamba2-2.7b from the token corpus
+    cfg = dataclasses.replace(mamba2_2p7b.CONFIG, num_layers=MAMBA_TRAIN_LAYERS)
+    table, ref, n_stripes, extract = _token_corpus(torch, cfg.vocab_size, b, s, tag)
+    trainer, held, row = trainer_for(cfg)
+    model = trainer.model
+    n_matmul = model.embed.out.numel() + sum(
+        p.numel() for n, p in model.layers.named_parameters() if n.split(".")[-1] in SSM_MATMULS)
+    fed = []
+
+    def feed(batches):
+        for batch in batches:
+            fed.append(batch)
+            yield batch
+
+    run = _timed_fit(torch, trainer, held,
+                     feed(T.lm_batches_from_table(table, s, b, decode_engine="torch")),
+                     LM_TRAIN_STEPS, tag)
+    _read_through_decode_kernels(run["launches"], fed, ref)
+    sc = cfg.ssm
+    h = sc.n_heads(cfg.d_model)
+    x_meta = torch.empty((b, s, h, sc.head_dim), dtype=cfg.compute_dtype, device="meta")
+    b_meta = torch.empty((b, s, sc.n_groups, sc.d_state), dtype=cfg.compute_dtype,
+                         device="meta")
+    ssd_flops = _ssd_bound(x_meta, b_meta, sc.chunk)[2]
+    model_flops = 6 * n_matmul * b * s + 3 * cfg.num_layers * ssd_flops
+    row.update({"seq": s, "corpus_batches": len(ref), "stripes": n_stripes,
+                "extract_launches": extract, "matmul_parameters": n_matmul,
+                "ssd_forward_flops_a_layer": ssd_flops})
+    median_ms = summary(cfg, run, b * s, model_flops, row)
+    del trainer, model, held
+    _free(torch)
+    row["ssd"] = _train_ssd_share(torch, cfg, median_ms)
+    out["mamba2"] = row
+
+    # seamless-m4t-large-v2 on lm_synthetic_batches' frames
+    cfg = seamless_m4t_v2.CONFIG
+    trainer, held, row = trainer_for(cfg)
+    model = trainer.model
+    fed.clear()
+    run = _timed_fit(torch, trainer, held, feed(lm_synthetic_batches(cfg, b, s)),
+                     LM_TRAIN_STEPS, tag)
+    t_dec, heads, hd = fed[0]["tokens"].shape[1], cfg.num_heads, cfg.head_dim
+
+    def matmuls(stack, keep):
+        return sum(p.numel() for n, p in stack.named_parameters() if p.dim() >= 2 and keep(n))
+
+    def cross_kv(n):          # "{layer}.cross_attn.wk": a projection of the frames
+        return n.split(".", 1)[1] in ("cross_attn.wk", "cross_attn.wv")
+
+    at_frames = matmuls(model.enc_layers, lambda n: True) + matmuls(model.dec_layers, cross_kv)
+    at_tokens = (matmuls(model.dec_layers, lambda n: not cross_kv(n))
+                 + model.embed.out.numel())
+    model_flops = (6 * (at_frames * b * s + at_tokens * b * t_dec)
+                   + 3 * cfg.encoder_layers * 4 * b * heads * s * s * hd
+                   + 3 * cfg.num_layers * (2 * b * heads * t_dec * t_dec * hd
+                                           + 4 * b * heads * t_dec * s * hd))
+    row.update({"frames": s, "decoder_tokens": t_dec, "matmul_parameters_at_frames":
+                at_frames, "matmul_parameters_at_tokens": at_tokens})
+    summary(cfg, run, b * (s + t_dec), model_flops, row)
+    del trainer, model, held, fed
+    _free(torch)
+    out["seamless"] = row
+
+    out["ssd_bwd"] = _ssd_bwd_check(torch)
+    out["card_vs_cpu"] = _train_families_card_vs_cpu(torch)
+    return out
+
+
+def _ssd_operands(torch, gen, x_shape, n, dtype):
+    """SSD operands at (B, S, H, P) with one group of state size ``n``: x,
+    B and C unit normal, dt = softplus of a unit normal and A = -exp of a
+    normal of 0.5 (float32, as the mixer makes them), the others in
+    ``dtype``."""
+    b, s, h, p = x_shape
+    x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
+    a = -torch.exp(0.5 * torch.randn((h,), generator=gen, device="cuda"))
+    b_ = torch.randn((b, s, 1, n), generator=gen, device="cuda").to(dtype)
+    c_ = torch.randn((b, s, 1, n), generator=gen, device="cuda").to(dtype)
+    return [x, dt, a, b_, c_]
+
+
+def _train_ssd_share(torch, cfg, step_ms):
+    """A training step's SSD scans at the step's operands, bf16: the plain
+    chunked form's forward under autograd (run twice a step under remat:
+    the forward and its recompute) and forward + backward (the backward
+    recomputes each chunk), CUDA events around back-to-back calls; their
+    share of ``step_ms``; ``ssd_chunk_forward``'s forward at the same
+    operands beside them (the yardstick for a hand-written backward)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+
+    sc = cfg.ssm
+    shape = (LM_TRAIN_BATCH, LM_TRAIN_SEQ, sc.n_heads(cfg.d_model), sc.head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    operands = _ssd_operands(torch, gen, shape, sc.d_state, torch.bfloat16)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    for t in operands:
+        t.requires_grad_()
+
+    def forward():
+        ssm.ssd_chunked(*operands, sc.chunk)
+
+    def both():
+        y, _ = ssm.ssd_chunked(*operands, sc.chunk)
+        torch.autograd.grad(y, operands, dy)
+
+    def kernel():
+        with torch.no_grad():
+            ops.ssd_chunk_forward(*(t.detach() for t in operands), chunk=sc.chunk)
+
+    fwd_ms = _call_ms(torch, forward, iters=5)
+    both_ms = _call_ms(torch, both, iters=5)
+    kernel_ms = _call_ms(torch, kernel, iters=20)
+    step_ssd = cfg.num_layers * (fwd_ms + both_ms)
+    out = {"forward_ms": fwd_ms, "forward_backward_ms": both_ms,
+           "kernel_forward_ms": kernel_ms, "a_step_ms": step_ssd,
+           "share_of_step": step_ssd / step_ms}
+    print(f"[lm_train_families] SSD at x {shape}, N {sc.d_state}, chunk {sc.chunk}, bf16: "
+          f"the chunked form's forward {fwd_ms:.3f} ms, forward + backward {both_ms:.3f} ms "
+          f"(ssd_chunk_forward's forward {kernel_ms:.3f} ms); {cfg.num_layers} layers x "
+          f"(forward + recompute + backward) {step_ssd:.3f} ms, {step_ssd / step_ms:.4f} of "
+          f"a step", flush=True)
+    del operands, dy
+    _free(torch)
+    return out
+
+
+def _ssd_bwd_check(torch):
+    """``ssd_chunked`` under autograd on the card at ``SSD_BWD_X`` with one
+    group of state ``SSD_BWD_N``, chunk ``SSD_BWD_CHUNK``, bf16, against
+    the same operands in float64 on the card (the chunked form keeps
+    float64 operands' precision): y and the gradients of x, dt, A, B and C
+    each within ``FLASH_BWD_TOL`` of the float64 ones in relative norm;
+    the output carries a graph (the chunked route), and no kernel is
+    launched."""
+    from repro_torch.kernels import build
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    operands = _ssd_operands(torch, gen, SSD_BWD_X, SSD_BWD_N, torch.bfloat16)
+    dy = torch.randn(SSD_BWD_X, generator=gen, device="cuda").to(torch.bfloat16)
+    runs = []
+    build.LAUNCHES.reset()
+    for dtype in (None, torch.float64):
+        x = [(t if dtype is None else t.to(dtype)).detach().requires_grad_() for t in operands]
+        y, _ = ssm.ssd_chunked(*x, SSD_BWD_CHUNK)
+        if y.grad_fn is None:
+            raise RuntimeError("ssd_chunked under grad returned no graph")
+        runs.append([y.detach(), *torch.autograd.grad(y, x, dy.to(y.dtype))])
+        del x, y
+    torch.cuda.synchronize()
+    if build.LAUNCHES.snapshot():
+        raise RuntimeError(f"the SSD backward launched {build.LAUNCHES.snapshot()}")
+    rel = {}
+    for name, g, w in zip(("y", "dx", "ddt", "dA", "dB", "dC"), *runs):
+        rel[name] = float((g.double() - w).norm() / w.norm())
+    print(f"[lm_train_families] SSD backward at x {SSD_BWD_X}, N {SSD_BWD_N}, chunk "
+          f"{SSD_BWD_CHUNK}, bf16: relative to float64 {rel}", flush=True)
+    del runs, operands, dy
+    _free(torch)
+    if not all(r <= FLASH_BWD_TOL for r in rel.values()):
+        raise RuntimeError(f"the SSD backward on the card is off float64 by {rel}")
+    return rel
+
+
+def _train_families_card_vs_cpu(torch):
+    """One training step on the card against the CPU (``_step_card_vs_cpu``)
+    for a narrow mamba2 (``MAMBA_TRAIN_NARROW``, chunk
+    ``MAMBA_TRAIN_NARROW_CHUNK``) and the SMOKE configs of jamba, seamless
+    and deepseek-v2, each on one ``lm_synthetic_batches`` batch of 2 rows
+    of ``LM_TRAIN_NARROW_SEQ`` tokens (seamless: frames, and 32 decoder
+    tokens)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.train import lm_synthetic_batches
+
+    mamba = configs.get_config("mamba2-2.7b")
+    cases = {
+        "mamba2": dataclasses.replace(mamba, **MAMBA_TRAIN_NARROW, ssm=dataclasses.replace(
+            mamba.ssm, chunk=MAMBA_TRAIN_NARROW_CHUNK)),
+        "jamba": configs.get_smoke_config("jamba-1.5-large-398b"),
+        "seamless": configs.get_smoke_config("seamless-m4t-large-v2"),
+        "deepseek-v2": configs.get_smoke_config("deepseek-v2-236b"),
+    }
+    out = {}
+    for name, cfg in cases.items():
+        batch = next(lm_synthetic_batches(cfg, 2, LM_TRAIN_NARROW_SEQ, seed=5))
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        out[name] = _step_card_vs_cpu(torch, cfg, batch, "lm_train_families",
+                                      f"{cfg.name} ({cfg.num_layers} layers, d_model "
+                                      f"{cfg.d_model})")
+    return out
 
 
 def main() -> int:
@@ -4813,6 +5188,10 @@ def main() -> int:
     t = time.perf_counter()
     print(json.dumps({"lm_train": _lm_train_path(torch)}), flush=True)
     print(f"[phase] LM training {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    print(json.dumps({"lm_train_families": _lm_train_families_path(torch)}), flush=True)
+    print(f"[phase] LM training, SSM and encoder-decoder families "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
     print(f"[phase] total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": results}))
     print(card)

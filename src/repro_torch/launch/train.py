@@ -12,9 +12,8 @@ synthetic warehouse and the DPP session the way the reference's
 ``repro.launch.train.dlrm_dpp_batches`` does and yields the tensor
 batches a trainer's client consumes.  An LM arch trains on
 ``lm_synthetic_batches`` (``--seq`` tokens a row), as in the reference;
-``--arch`` takes ``dlrm-paper`` and every ``DecoderLM`` arch (dense, MoE,
-MLA, vision), not yet the SSM, hybrid or encoder-decoder ones, whose
-training forward is not ported.
+an encoder-decoder arch on its frames (``--seq`` of them a row) and
+``max(seq // 8, 16)`` decoder tokens.  ``--arch`` takes every arch.
 """
 from __future__ import annotations
 
@@ -32,7 +31,6 @@ from repro_torch.core.dpp import DPPSession, SessionSpec
 from repro_torch.core.schema import make_schema
 from repro_torch.core.transforms import default_dlrm_pipeline
 from repro_torch.core.warehouse import Table, Warehouse
-from repro_torch.models.common import ModelConfig
 from repro_torch.models.dlrm import DLRMConfig
 from repro_torch.optim import OptimizerConfig
 from repro_torch.train import Trainer, TrainerConfig
@@ -134,23 +132,12 @@ def lm_synthetic_batches(cfg, batch_size: int, seq: int, seed: int = 0):
         yield batch
 
 
-def _trains(cfg) -> bool:
-    """Whether the port trains ``cfg``: DLRM, or a ``DecoderLM`` config
-    (not SSM, hybrid or encoder-decoder)."""
-    if isinstance(cfg, DLRMConfig):
-        return True
-    return (isinstance(cfg, ModelConfig) and cfg.encoder_layers == 0
-            and cfg.family not in ("ssm", "hybrid"))
-
-
-TRAIN_ARCHS = [a for a in cfglib.ARCH_IDS if _trains(cfglib.get_config(a))]
+TRAIN_ARCHS = list(cfglib.ARCH_IDS)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dlrm-paper", choices=TRAIN_ARCHS,
-                    help="dlrm-paper or a decoder LM arch; the SSM, hybrid and "
-                         "encoder-decoder archs wait for their training forward")
+    ap.add_argument("--arch", default="dlrm-paper", choices=TRAIN_ARCHS)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--seq", type=int, default=128, help="an LM row's tokens")

@@ -1,7 +1,7 @@
 """Models of the port: DLRM, the decoder LM (dense, GQA, MLA, MoE and the
 vision frontend), the pure SSM (Mamba-2) LM, the hybrid (Jamba) LM and
 the encoder-decoder LM with the audio frontend stub."""
-from typing import Any, Union
+from typing import Any, Type, Union
 
 from repro_torch.models.common import MLAConfig, MoEConfig, ModelConfig, SSMConfig
 from repro_torch.models.dlrm import DLRM, DLRMConfig
@@ -20,18 +20,23 @@ def build_model(cfg: Any, **kwargs) -> Union[DLRM, DecoderLM]:
     the model does not take is ignored, as in the reference, and a config
     the reference's own constructors refuse raises ``ValueError``
     (``transformer.check_family``)."""
+    return model_class(cfg)(cfg, **kwargs)
+
+
+def model_class(cfg: Any) -> Type[Union[DLRM, DecoderLM]]:
+    """The class ``build_model`` builds for ``cfg``."""
     if isinstance(cfg, DLRMConfig):
-        return DLRM(cfg, **kwargs)
+        return DLRM
     if isinstance(cfg, ModelConfig):
         if cfg.encoder_layers > 0:
-            return EncDecLM(cfg, **kwargs)
+            return EncDecLM
         if cfg.family == "ssm":
-            return SSMLM(cfg, **kwargs)
+            return SSMLM
         if cfg.family == "hybrid":
-            return HybridLM(cfg, **kwargs)
-        return DecoderLM(cfg, **kwargs)
+            return HybridLM
+        return DecoderLM
     raise TypeError(f"no model of the port for {type(cfg).__name__}")
 
 
 __all__ = ["DLRM", "DLRMConfig", "DecoderLM", "EncDecLM", "HybridLM", "MLAConfig",
-           "MoEConfig", "ModelConfig", "SSMConfig", "SSMLM", "build_model"]
+           "MoEConfig", "ModelConfig", "SSMConfig", "SSMLM", "build_model", "model_class"]

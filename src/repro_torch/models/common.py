@@ -112,6 +112,23 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.num_heads // max(self.num_kv_heads, 1)
 
+    def active_params(self) -> int:
+        """Approximate active (per-token) parameter count."""
+        full = param_count(self)
+        if self.moe is None:
+            return full
+        moe_layers = self._num_moe_layers()
+        per_expert = 3 * self.d_model * self.moe.d_ff
+        inactive = moe_layers * per_expert * (self.moe.num_experts - self.moe.top_k)
+        return full - inactive
+
+    def _num_moe_layers(self) -> int:
+        if self.moe is None:
+            return 0
+        if self.family == "hybrid" and self.moe_period:
+            return self.num_layers // self.moe_period
+        return self.num_layers
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
@@ -137,9 +154,15 @@ def partition_specs(spec_tree: Any, rules: AxisRules, mesh) -> Any:
 
 
 def param_count(tree: Any) -> int:
-    """Total parameter count of a tree: nested dicts whose leaves are
-    tensors, arrays or ``ParamSpec``s (a model's ``params()``, say).  The
-    reference's also takes a ``ModelConfig``."""
+    """Total parameter count of a ``ModelConfig`` (its model's spec tree,
+    each stack counted times its length; no parameter is allocated) or of
+    a tree: nested dicts whose leaves are tensors, arrays or
+    ``ParamSpec``s (a model's ``params()``, say)."""
+    if isinstance(tree, ModelConfig):
+        from repro_torch.models import model_class   # lazy: models imports this module
+
+        specs, stacks = model_class(tree).specs_of(tree)
+        return sum(param_count(v) * stacks.get(k, 1) for k, v in specs.items())
     if isinstance(tree, dict):
         return sum(param_count(v) for v in tree.values())
     return math.prod(tree.shape)

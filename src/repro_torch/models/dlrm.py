@@ -229,6 +229,18 @@ class DLRM(nn.Module):
             "top": _mlp_specs((c.bottom_mlp[-1] + n_pairs,) + c.top_mlp, c.param_dtype),
         }
 
+    def input_specs(self, batch: int, seq: int = 0, mode: str = "train") -> Dict[str, Any]:
+        """Shape and dtype of each input of a step (``seq`` is unused; a
+        "train" step also takes ``label``)."""
+        c = self.cfg
+        ids = (batch, c.num_tables, c.max_ids_per_feature)
+        specs = {"dense": ((batch, c.num_dense), torch.float32),
+                 "sparse_ids": (ids, torch.int32),
+                 "sparse_mask": (ids, torch.float32)}
+        if mode == "train":
+            specs["label"] = ((batch,), torch.float32)
+        return specs
+
     def params(self) -> Dict[str, torch.Tensor]:
         """The parameters by name, in sorted order (the reference's tree
         order, which ``optim.global_norm`` sums in)."""

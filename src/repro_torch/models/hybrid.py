@@ -1,6 +1,6 @@
 """Jamba-style hybrid: blocks of (attention : Mamba = 1 : 7) with MoE FFNs.
 
-A port of the reference's ``repro.models.hybrid`` for serving.  Layers are
+A port of the reference's ``repro.models.hybrid``.  Layers are
 grouped into ``block_period``-sized blocks: one attention sublayer at
 ``attn_index`` and Mamba-2 mixers elsewhere, the FFN of in-block index i a
 MoE when ``i % max(moe_period, 1) == 1`` (so ``moe_period`` 0 or 1 gives
@@ -15,7 +15,11 @@ of blocks.  The cache keeps the reference's stacked layout: ``k``/``v``
 block_period - 1, B, H, P, N) float32 and the conv tails ``conv_x``/
 ``conv_B``/``conv_C`` (n_blocks, block_period - 1, B, W - 1, C).
 ``decode_step`` writes the cache it is given in place and returns it.
-Training (``backbone``, ``_block_train``) waits for the LM-training slice.
+It trains through ``DecoderLM.loss`` with its own ``backbone``: each
+block's ``_block_train`` (attention through ``blocked_attention``'s
+training route, the Mamba-2 mixers through ``ssd_chunked``'s, the FFNs)
+inside ``torch.utils.checkpoint`` under ``cfg.remat``, the MoE
+sublayers' aux losses summed.
 
 ``_ssm_prefill_with_state`` is the Mamba-2 prefill that also returns the
 final SSM state and the conv tails; ``SSMLM.prefill`` runs it too.
@@ -74,6 +78,42 @@ class HybridLM(DecoderLM):
     def stacks(self) -> Dict[str, int]:
         return {"blocks": self.n_blocks}
 
+    # -- training -----------------------------------------------------------
+
+    def _block_train(self, bp, x: torch.Tensor, positions: torch.Tensor):
+        """One block's training forward: (x, the sum of its MoE sublayers'
+        aux losses)."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(cfg.block_period):
+            sp = bp.get_submodule(f"sub{i}")
+            h = layers.rmsnorm(x, sp.ln1, cfg.rms_eps)
+            if self._is_attn(i):
+                q, k, v = attn.gqa_project_qkv(sp.mixer, h, positions, cfg)
+                o = attn.blocked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
+                                           k_chunk=cfg.attn_k_chunk)
+                mix = attn.output_projection(o, sp.mixer.wo)
+            else:
+                mix = ssm_lib.ssm_forward(sp.mixer, h, cfg)
+            x = x + mix
+            h = layers.rmsnorm(x, sp.ln2, cfg.rms_eps)
+            if self._is_moe(i):
+                f, a = moe_lib.moe_forward(sp.ffn, h, cfg)
+                aux = aux + a
+            else:
+                f = layers.mlp(sp.ffn, h)
+            x = x + f
+        return x, aux
+
+    def backbone(self, x: torch.Tensor, positions: torch.Tensor):
+        """The blocks over x (B, S, d), then the final norm: (x, the sum of
+        the blocks' aux losses)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for bp in self.blocks:
+            x, aux_b = self._remat(self._block_train, bp, x, positions)
+            aux = aux + aux_b
+        return layers.rmsnorm(x, self.ln_f, self.cfg.rms_eps), aux
+
     # -- cache --------------------------------------------------------------
 
     def abstract_cache(self, batch: int, seq: int) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
@@ -93,6 +133,17 @@ class HybridLM(DecoderLM):
             "conv_x": (lead + (tail, s_cfg.d_inner(cfg.d_model)), dt),
             "conv_B": (lead + (tail, gn), dt),
             "conv_C": (lead + (tail, gn), dt),
+        }
+
+    def cache_logical_axes(self) -> Dict[str, Tuple]:
+        kv = ("stack", "batch", "kv_seq", "kv_heads", None)
+        return {
+            "k": kv,
+            "v": kv,
+            "state": ("stack", None, "batch", "ssm_heads", None, None),
+            "conv_x": ("stack", None, "batch", None, "mlp"),
+            "conv_B": ("stack", None, "batch", None, None),
+            "conv_C": ("stack", None, "batch", None, None),
         }
 
     # -- serving ------------------------------------------------------------

@@ -7,15 +7,24 @@ reference's numerics (projections and the intra-chunk products in the
 compute dtype, the scan's decays, inter-chunk products and state in
 float32, SiLU and softplus in float32).
 
-``ssd_chunked`` is where the TPU kernel's function runs: on a CUDA tensor
-it launches the hand-written ``ssd_chunk_forward`` kernel once through
-``repro_torch.kernels.ops``, which reads the (B, S, H, P) / (B, S, G, N)
-operands in place and returns y and the final state, a ragged last chunk
-masked; on a CPU tensor it runs the reference's chunked form (one chunk of
-S when the chunk does not divide S, as the reference falls back), ``lax.scan``
-becoming a loop over the chunks and ``jnp.repeat`` ``repeat_interleave``.
-The two agree up to rounding: the kernel keeps C.B^T in float32 where the
-reference's einsum, and the CPU form, round it to the compute dtype.
+``ssd_chunked`` is where the TPU kernel's function runs, by one of two
+routes chosen from the operands before any launch.  Serving (grad off, or
+no operand requiring it): on a CUDA tensor it launches the hand-written
+``ssd_chunk_forward`` kernel once through ``repro_torch.kernels.ops``,
+which reads the (B, S, H, P) / (B, S, G, N) operands in place and returns
+y and the final state, a ragged last chunk masked; on a CPU tensor it runs
+the reference's chunked form (one chunk of S when the chunk does not
+divide S, as the reference falls back), ``lax.scan`` becoming a loop over
+the chunks and ``jnp.repeat`` ``repeat_interleave``.  The two agree up to
+rounding: the kernel keeps C.B^T in float32 where the reference's einsum,
+and the chunked form, round it to the compute dtype.  Training (grad on
+and any of x, dt, A, B, C or the initial state requiring it): the kernel
+is forward-only, so the chunked form runs on either device and autograd
+differentiates it, as XLA differentiates the reference's.  Each chunk's
+body then runs inside ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint(body)``), taking the carried state in and returning it,
+so the backward keeps each chunk's inputs and recomputes its (B, Q, Q, H)
+float32 decay and score tensors instead of holding them for every chunk.
 
 One deliberate difference from the reference: the cumsum cs of dt*A runs
 in float64 (in the CPU form and in the kernel), and each difference of it
@@ -37,6 +46,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, ParamSpec
@@ -86,6 +96,36 @@ def _conv_step(x_t: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor):
     return out, window[:, 1:, :]
 
 
+def _ssd_chunk(state, x_, dt_, b_, c_, A, causal, hg: int):
+    """One chunk of the SSD scan: the carried state (B, H, P, N) float32 and
+    the chunk's x (B, Q, H, P), dt (B, Q, H) float32, B and C (B, Q, G, N)
+    -> (the next state, the chunk's y (B, Q, H, P) in x's dtype).  Float64
+    operands keep their precision: "float32" below is then float64."""
+    f32 = state.dtype                                       # float32, or float64
+    da = dt_ * A                                            # (B, Q, H), negative
+    # inclusive cumsum, and every difference of it, in float64, rounded to
+    # float32 before the exp (see the module's docstring)
+    cs = torch.cumsum(da.to(torch.float64), dim=1)
+    # L[i, j] = exp(cs[i] - cs[j]) for i >= j.  Masked BEFORE the exp: the
+    # i < j entries are positive and overflow to inf, whose gradient through
+    # the where would be NaN
+    seg = (cs[:, :, None, :] - cs[:, None, :, :]).to(f32)   # (B, Q, Q, H)
+    L = torch.exp(torch.where(causal[None, :, :, None], seg, -1e30))
+    cb = torch.einsum("bqgn,bkgn->bgqk", c_, b_).to(f32)
+    cb_h = cb.repeat_interleave(hg, dim=1).permute(0, 2, 3, 1)   # (B, Q, K, H)
+    m = cb_h * L * dt_[:, None, :, :]
+    y_intra = torch.einsum("bqkh,bkhp->bqhp", m.to(x_.dtype), x_).to(f32)
+    c_h = c_.repeat_interleave(hg, dim=2)                   # (B, Q, H, N)
+    y_inter = torch.einsum("bqhn,bhpn->bqhp",
+                           c_h.to(f32) * torch.exp(cs.to(f32))[..., None], state)
+    decay_out = torch.exp((cs[:, -1, None, :] - cs).to(f32))   # (B, Q, H)
+    b_h = b_.repeat_interleave(hg, dim=2)
+    dstate = torch.einsum("bqhn,bqhp->bhpn",
+                          b_h.to(f32) * (dt_ * decay_out)[..., None], x_.to(f32))
+    state = torch.exp(cs[:, -1].to(f32))[:, :, None, None] * state + dstate
+    return state, (y_intra + y_inter).to(x_.dtype)
+
+
 def ssd_chunked(
     x: torch.Tensor,        # (B, S, H, P)
     dt: torch.Tensor,       # (B, S, H), post-softplus
@@ -96,16 +136,18 @@ def ssd_chunked(
     initial_state: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan: returns (y (B, S, H, P), final_state (B, H, P, N)
-    float32)."""
-    if x.device.type == "cuda":
+    float32, or float64 for float64 x).  Under autograd the chunked form
+    on either device, each chunk checkpointed; else the kernel on a CUDA
+    tensor (module docstring)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no SSD scan for device {x.device}; expected cpu or cuda")
+    train = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, dt, A, B_, C_, initial_state))
+    if x.device.type == "cuda" and not train:
         return ops.ssd_chunk_forward(x, dt, A, B_, C_, chunk=chunk,
                                      initial_state=initial_state)
-    if x.device.type != "cpu":
-        raise ValueError(f"no SSD scan for device {x.device}; expected cpu or cuda")
-    f32 = torch.float32
     b, s, h, p = x.shape
     g, n = B_.shape[2], B_.shape[3]
-    hg = h // g
     q = min(chunk, s)
     if s % q:
         q = s
@@ -114,33 +156,19 @@ def ssd_chunked(
     def split(t):
         return t.reshape((b, nc, q) + tuple(t.shape[2:])).transpose(0, 1)
 
-    xc, dtc, Bc, Cc = split(x), split(dt).to(f32), split(B_), split(C_)
-    state = (initial_state if initial_state is not None
-             else torch.zeros((b, h, p, n), dtype=f32, device=x.device))
+    work = torch.promote_types(x.dtype, torch.float32)      # float32, or float64
+    xc, dtc, Bc, Cc = split(x), split(dt).to(work), split(B_), split(C_)
+    state = (initial_state.to(work) if initial_state is not None
+             else torch.zeros((b, h, p, n), dtype=work, device=x.device))
     causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
     ys = []
     for ci in range(nc):
-        x_, dt_, b_, c_ = xc[ci], dtc[ci], Bc[ci], Cc[ci]
-        da = dt_ * A                                            # (B, Q, H), negative
-        # inclusive cumsum, and every difference of it, in float64, rounded
-        # to float32 before the exp (see the module's docstring)
-        cs = torch.cumsum(da.to(torch.float64), dim=1)
-        # L[i, j] = exp(cs[i] - cs[j]) for i >= j, masked before the exp
-        seg = (cs[:, :, None, :] - cs[:, None, :, :]).to(f32)   # (B, Q, Q, H)
-        L = torch.exp(torch.where(causal[None, :, :, None], seg, -1e30))
-        cb = torch.einsum("bqgn,bkgn->bgqk", c_, b_).to(f32)
-        cb_h = cb.repeat_interleave(hg, dim=1).permute(0, 2, 3, 1)   # (B, Q, K, H)
-        m = cb_h * L * dt_[:, None, :, :]
-        y_intra = torch.einsum("bqkh,bkhp->bqhp", m.to(x_.dtype), x_).to(f32)
-        c_h = c_.repeat_interleave(hg, dim=2)                   # (B, Q, H, N)
-        y_inter = torch.einsum("bqhn,bhpn->bqhp",
-                               c_h.to(f32) * torch.exp(cs.to(f32))[..., None], state)
-        decay_out = torch.exp((cs[:, -1, None, :] - cs).to(f32))   # (B, Q, H)
-        b_h = b_.repeat_interleave(hg, dim=2)
-        dstate = torch.einsum("bqhn,bqhp->bhpn",
-                              b_h.to(f32) * (dt_ * decay_out)[..., None], x_.to(f32))
-        state = torch.exp(cs[:, -1].to(f32))[:, :, None, None] * state + dstate
-        ys.append((y_intra + y_inter).to(x.dtype))
+        args = (state, xc[ci], dtc[ci], Bc[ci], Cc[ci], A, causal, h // g)
+        if train:
+            state, y = checkpoint(_ssd_chunk, *args, use_reentrant=False)
+        else:
+            state, y = _ssd_chunk(*args)
+        ys.append(y)
     y = torch.stack(ys).transpose(0, 1).reshape(b, s, h, p)
     return y, state
 

@@ -1,6 +1,6 @@
 """Pure SSM language model (Mamba-2): attention-free, FFN-free blocks.
 
-A port of the reference's ``repro.models.ssm_lm.SSMLM`` for serving.  It
+A port of the reference's ``repro.models.ssm_lm.SSMLM``.  It
 is a ``DecoderLM`` whose layers hold ``ln1`` and a Mamba-2 ``mixer``
 (``layers.{i}.mixer.wz``, ... under the reference's names), so it inherits
 the seeded init (the reference's sorted leaf order and its "scaled"
@@ -9,8 +9,12 @@ The cache keeps the reference's stacked layout: ``state`` (L, B, H, P, N)
 float32 and the conv tails ``conv_x``/``conv_B``/``conv_C`` (L, B, W-1, C)
 in the compute dtype.  ``decode_step`` ignores ``pos``, as the reference
 does, writes every layer's new state and conv tails into the cache it is
-given, in place, and returns that cache.  Training (``backbone``, the
-loss) waits for the LM-training slice.
+given, in place, and returns that cache.  It trains through
+``DecoderLM.loss`` and ``backbone`` with its own ``_layer_train``: each
+layer is ``h + ssm_forward(mixer, rmsnorm(h, ln1))``, inside
+``torch.utils.checkpoint`` under ``cfg.remat``, its scan taking
+``ssd_chunked``'s training route (the chunked form under autograd, each
+chunk checkpointed); the aux loss is zero.
 """
 from __future__ import annotations
 
@@ -34,6 +38,16 @@ class SSMLM(DecoderLM):
             "mixer": ssm_lib.ssm_specs(cfg),
         }
 
+    # -- training -----------------------------------------------------------
+
+    def _layer_train(self, lp, x: torch.Tensor, positions: torch.Tensor):
+        """One layer's training forward, under ``DecoderLM.backbone``:
+        (x + the mixer of its norm, a zero aux loss); ``positions`` is not
+        read (no rope)."""
+        mix = ssm_lib.ssm_forward(lp.mixer, layers.rmsnorm(x, lp.ln1, self.cfg.rms_eps),
+                                  self.cfg)
+        return x + mix, torch.zeros((), dtype=torch.float32, device=x.device)
+
     # -- cache --------------------------------------------------------------
 
     def abstract_cache(self, batch: int, seq: int) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
@@ -51,6 +65,14 @@ class SSMLM(DecoderLM):
             "conv_x": ((n_layers, batch, tail, din), cfg.compute_dtype),
             "conv_B": ((n_layers, batch, tail, gn), cfg.compute_dtype),
             "conv_C": ((n_layers, batch, tail, gn), cfg.compute_dtype),
+        }
+
+    def cache_logical_axes(self) -> Dict[str, Tuple]:
+        return {
+            "state": ("stack", "batch", "ssm_heads", None, None),
+            "conv_x": ("stack", "batch", None, "mlp"),
+            "conv_B": ("stack", "batch", None, None),
+            "conv_C": ("stack", "batch", None, None),
         }
 
     # -- serving ------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Decoder-only LM of the dense / GQA / MLA / MoE / VLM families, in PyTorch.
 
-A port of the reference's ``repro.models.transformer`` (``DecoderLM``)
-for serving: ``prefill`` (forward over the prompt, emitting the cache)
-and ``decode_step`` (one token against the cache).  A layer's attention
+A port of the reference's ``repro.models.transformer`` (``DecoderLM``):
+``prefill`` (forward over the prompt, emitting the cache) and
+``decode_step`` (one token against the cache).  A layer's attention
 is GQA or MLA (``cfg.mla``) and its FFN a SwiGLU MLP or a MoE
 (``cfg.moe``); the vision frontend (``cfg.frontend == "vision"``) puts
 the batch's ``image_embeds`` in place of the first ``num_patches``
@@ -14,11 +14,14 @@ when ``cfg.remat`` (the reference's ``jax.checkpoint``), so its attention
 takes the training route of ``attention.blocked_attention`` (the
 ``_Flash`` backward, never the forward-only kernels).  ``prefill`` and
 ``decode_step`` run under ``torch.no_grad()`` and launch the kernels.
-The SSM, hybrid and encoder-decoder models' training forward is not
-ported: their ``loss`` raises.
 ``repro_torch.models.ssm_lm.SSMLM``, ``hybrid.HybridLM`` and
 ``encdec.EncDecLM`` are ``DecoderLM``s with other parameter trees
-(``param_specs``, ``stacks``), caches and serving steps.
+(``param_specs``, ``stacks``), caches, serving steps and training
+backbones: the SSM and hybrid models train through this ``loss`` with
+their own ``backbone``, the encoder-decoder through its own ``loss``.
+``input_specs`` and ``cache_logical_axes`` are the reference's: the
+shape and dtype of each input of a train, prefill or decode step, and
+the logical axes of each cache entry.
 
 The reference scans one stacked parameter tree over the layers; here each
 stack (``stacks``: ``layers`` here) is an ``nn.ModuleList`` whose
@@ -113,6 +116,16 @@ class DecoderLM(nn.Module):
     def device(self) -> torch.device:
         return self.ln_f.device
 
+    @classmethod
+    def specs_of(cls, cfg: ModelConfig) -> Tuple[Dict[str, Any], Dict[str, int]]:
+        """``param_specs()`` and ``stacks()`` of the model ``cfg`` builds,
+        without allocating its parameters."""
+        check_family(cfg, cls.family)
+        view = cls.__new__(cls)
+        nn.Module.__init__(view)
+        view.cfg = cfg
+        return view.param_specs(), view.stacks()
+
     # -- parameters ---------------------------------------------------------
 
     def layer_specs(self) -> Dict[str, Any]:
@@ -173,6 +186,31 @@ class DecoderLM(nn.Module):
         return {name: torch.zeros(shape, dtype=dtype, device=self.device)
                 for name, (shape, dtype) in self.abstract_cache(batch, seq).items()}
 
+    def cache_logical_axes(self) -> Dict[str, Tuple]:
+        if self.cfg.mla:
+            return {"c_kv": ("stack", "batch", "kv_seq", None),
+                    "k_rope": ("stack", "batch", "kv_seq", None)}
+        kv = ("stack", "batch", "kv_seq", "kv_heads", None)
+        return {"k": kv, "v": kv}
+
+    def input_specs(self, batch: int, seq: int, mode: str = "train") -> Dict[str, Any]:
+        """Shape and dtype of each input of a ``mode`` step ("train",
+        "prefill" or "decode"), as ``abstract_cache`` gives them."""
+        cfg = self.cfg
+        i32 = torch.int32
+        if mode in ("train", "prefill"):
+            specs = {"tokens": ((batch, seq), i32)}
+            if mode == "train":
+                specs["labels"] = ((batch, seq), i32)
+            if cfg.frontend == "vision":
+                specs["image_embeds"] = ((batch, cfg.num_patches, cfg.d_model),
+                                         cfg.compute_dtype)
+            return specs
+        if mode == "decode":
+            return {"token": ((batch, 1), i32), "pos": ((), i32),
+                    "cache": self.abstract_cache(batch, seq)}
+        raise ValueError(mode)
+
     # -- inputs -------------------------------------------------------------
 
     def embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -218,19 +256,23 @@ class DecoderLM(nn.Module):
                                                         device=x.device)
         return x + f, aux
 
+    def _remat(self, fn, *args):
+        """``fn(*args)``, inside ``torch.utils.checkpoint`` when
+        ``cfg.remat`` and grad is on (the reference's ``jax.checkpoint``
+        of a scanned layer): its activations are recomputed in the
+        backward."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     def backbone(self, x: torch.Tensor, positions: torch.Tensor):
         """The layers over x (B, S, d), then the final norm: (x, the sum of
-        the layers' aux losses).  With ``cfg.remat`` each layer's
-        activations are recomputed in the backward."""
-        cfg = self.cfg
+        the layers' aux losses)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in self.layers:
-            if cfg.remat and torch.is_grad_enabled():
-                x, aux_i = checkpoint(self._layer_train, lp, x, positions, use_reentrant=False)
-            else:
-                x, aux_i = self._layer_train(lp, x, positions)
+            x, aux_i = self._remat(self._layer_train, lp, x, positions)
             aux = aux + aux_i
-        return layers.rmsnorm(x, self.ln_f, cfg.rms_eps), aux
+        return layers.rmsnorm(x, self.ln_f, self.cfg.rms_eps), aux
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The training objective of ``batch["tokens"]`` against
@@ -238,10 +280,6 @@ class DecoderLM(nn.Module):
         vision frontend, whose first ``num_patches`` positions the loss
         masks out): a float32 scalar."""
         cfg = self.cfg
-        if self.family != "dense":
-            raise NotImplementedError(
-                f"{type(self).__name__}: the {self.family} model's training forward is not "
-                "ported; only the decoder LM (dense, MoE, MLA, vision) trains")
         tokens = batch["tokens"].to(self.device)
         b, s = tokens.shape
         positions = torch.arange(s, device=self.device).expand(b, s)

@@ -25,14 +25,14 @@ optimizer state and the step run on ``device`` (``cuda`` unless the
 caller asks for the CPU); the store's tables and bookkeeping stay on the
 host.
 
-An LM config (``models.DecoderLM``: dense, MoE, MLA, vision) trains by
-the same dense step, ``model.loss`` differentiated by autograd and the
-reference's AdamW, on one device; its parameters are the model's by
-name (``layers.{i}.attn.wq``, ...).  Its checkpoint holds the
-reference's tree: each stack of ``convert.LM_STACKS`` stacked on axis 0
-again (``convert.stack_layers``), for the parameters and for
-``mu``/``nu``, so an LM checkpoint crosses between the packages as the
-DLRM one does.
+An LM config (``models.DecoderLM``, and the SSM, hybrid and
+encoder-decoder models built on it) trains by the same dense step,
+``model.loss`` differentiated by autograd and the reference's AdamW, on
+one device; its parameters are the model's by name
+(``layers.{i}.attn.wq``, ...).  Its checkpoint holds the reference's
+tree: each stack of ``convert.LM_STACKS`` stacked on axis 0 again
+(``convert.stack_layers``), for the parameters and for ``mu``/``nu``,
+so an LM checkpoint crosses between the packages as the DLRM one does.
 
 On a mesh (``mesh``, a ``launch.mesh.Mesh``; dense path only) every rank
 runs the loop: it holds its vocab slice of the tables

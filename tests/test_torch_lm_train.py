@@ -326,16 +326,6 @@ def test_remat_gives_bit_equal_gradients():
         assert torch.equal(g0[n], g1[n]), n
 
 
-def test_other_families_do_not_train():
-    """The SSM, hybrid and encoder-decoder training forwards are not
-    ported: their ``loss`` raises instead of running the decoder's."""
-    for arch in ("mamba2-2.7b", "jamba-1.5-large-398b", "seamless-m4t-large-v2"):
-        model = build_model(configs.get_smoke_config(arch), device="cpu")
-        with pytest.raises(NotImplementedError, match="training forward is not ported"):
-            model.loss({"tokens": torch.zeros((1, 8), dtype=torch.int32),
-                        "labels": torch.zeros((1, 8), dtype=torch.int32)})
-
-
 # -- the Trainer ----------------------------------------------------------------------
 
 TRAIN_OPT = dict(learning_rate=3e-3, warmup_steps=2, total_steps=6)
@@ -443,12 +433,10 @@ def test_train_cli_trains_an_lm_smoke(capsys):
 
 
 def test_train_cli_lm_archs():
-    """``--arch`` takes DLRM and every decoder LM arch, and none whose
-    training forward is not ported."""
-    assert set(train_cli.TRAIN_ARCHS) == set(configs.ARCH_IDS) - {
-        "mamba2-2.7b", "jamba-1.5-large-398b", "seamless-m4t-large-v2"}
+    """``--arch`` takes every arch, and no other."""
+    assert train_cli.TRAIN_ARCHS == configs.ARCH_IDS
     with pytest.raises(SystemExit):
-        train_cli.main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu"])
+        train_cli.main(["--arch", "no-such-arch", "--smoke", "--device", "cpu"])
 
 
 def test_lm_synthetic_batches_match_reference():
