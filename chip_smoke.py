@@ -363,12 +363,14 @@ CARD_CPU_TOL = 1e-3
 F32_ERR_FACTOR = 3
 # the LM families' training phase, bf16, seed 0, remat, LM_TRAIN_OPT's
 # AdamW, 6 steps of batch 2: mamba2-2.7b at every published width, its
-# depth cut from 64 layers to 32 (PERF.md section 4: 1,544,194,048
+# depth cut from 64 layers to 16 (PERF.md section 4: 900,815,104
 # parameters; 64 reckon to ~70-74 GB at the 24.5 B a parameter measured
-# for qwen3), on 4096-token rows from the DWRF token corpus; seamless-m4t-
+# for qwen3; 32, PR 27's cut, took ~30 s more of a script that the
+# sharded LM phase took past 900 s), on 4096-token rows from the DWRF
+# token corpus; seamless-m4t-
 # large-v2 whole (2,034,784,256 parameters) on 4096 frames and 512 decoder
 # tokens a row from lm_synthetic_batches
-MAMBA_TRAIN_LAYERS = 32
+MAMBA_TRAIN_LAYERS = 16
 SSM_MATMULS = ("wz", "wx", "wB", "wC", "wdt", "out")    # a mixer's matrix products
 # the SSD backward alone at mamba2-2.7b's layer shape, bf16: y and the
 # gradients of x, dt, A, B and C within 2e-2 of a float64 run's in relative
@@ -404,6 +406,50 @@ SHARDED_TIMEOUT_S = 400       # each spawn's join
 SHARDED_LOSS_RTOL = (1e-5, 1e-4)   # step 1, steps 2-8
 SHARDED_ROW_TOL = dict(rtol=1e-4, atol=1e-6)    # touched rows after step 1
 SHARDED_NORM_RTOL = 1e-3      # touched rows after step 8, in relative norm
+# the sharded LM step: deepseek-v2-236b at every published width (d_model
+# 5120, 128 heads, MLA ranks q 1536 / kv 512, qk 128 + 64, v 128, expert
+# d_ff 1536, top 6, 2 shared experts of d_ff 3072, vocab 102,400), bf16,
+# remat, seed 0, its depth cut to 1 of 60 layers and its experts to 32 of
+# 160 (PERF.md section 4: 2.00 B parameters; whole on one rank ~24 GB of
+# weights, gradients and moments and ~20 GB of AdamW's copies; 64 experts
+# would add ~7 GB a rank of the four), on mesh (2, 2) over ("data",
+# "model"): four gloo ranks on the one card, each holding its TRAIN_RULES
+# slices and 16 experts; 3 steps of 4 rows x 1024 tokens (2 rows a data
+# rank), then a prefill of 4 x 1024 and one decode step under SERVE_RULES;
+# the same on mesh (1, 1), one NCCL rank
+SHARDED_LM_MESH = (2, 2)
+SHARDED_LM_LAYERS, SHARDED_LM_EXPERTS = 1, 32
+SHARDED_LM_BATCH, SHARDED_LM_SEQ, SHARDED_LM_STEPS = 4, 1024, 3
+SHARDED_LM_OPT = dict(warmup_steps=1)
+SHARDED_LM_SEED = 0
+# the training attention (the plain _Flash) in blocks of 256 query rows,
+# not the config's 1024: a lowering knob (online softmax, the same values
+# to rounding) that cuts each rank's float32 score blocks from 1 GiB to
+# 256 MiB; at 1024 the four ranks' peaks of 17.2 GB and the script's own
+# process ran the card out of memory in a full run
+SHARDED_LM_ATTN_CHUNK = 256
+SHARDED_LM_DECODE_EXTRA = 8   # cache positions past the prompt for the decode step
+SHARDED_LM_TIMEOUT_S = 400    # each spawn's join
+# bounds of the four ranks against the one, stated before the first run:
+# bf16 activations rounded in other orders (partial expert sums added by
+# the all-reduce, 2 rows a rank against 4 in one matrix product), each
+# rounding 2^-8 of its value, and the MoE aux loss of each data shard's
+# tokens against all tokens' (its coefficient 0.01)
+SHARDED_LM_LOSS_RTOL = 2e-2   # each step's loss
+SHARDED_LM_NORM_RTOL = 5e-2   # each step's grad norm
+SHARDED_LM_LOGIT_RTOL = 2e-2  # prefill and decode logits, relative norm
+# the SMOKE check: deepseek-smoke (8 experts, remat) in float32, the same
+# steps on the card and on the CPU on meshes (2, 2) and (1, 4), 3 steps of
+# 4 x 64 tokens from seed 2; routers scaled by TRAIN_ROUTER_SCALE
+SHARDED_LM_SMOKE_MESHES = ((2, 2), (1, 4))
+SHARDED_LM_SMOKE_BATCH, SHARDED_LM_SMOKE_SEQ, SHARDED_LM_SMOKE_SEED = 4, 64, 2
+# the losses, step 1's grad norm and the slices after step 1 within 1e-4
+# (relative; slices rtol and atol); later grad norms within 1e-3 and the
+# slices within 1e-4 plus 2 lr a step: AdamW moves an element by about lr
+# whatever its gradient's size, so float32 noise in a near-zero gradient
+# (an embedding row whose uses cancel) turns into lr-sized differences
+SHARDED_LM_SMOKE_TOL = 1e-4
+SHARDED_LM_SMOKE_LATER_NORM_RTOL = 1e-3
 # the paper's Table 9 (tests/test_simulator.py): DPP worker throughput and
 # workers per trainer of RM1-RM3 on C-v1, held within 8% (12% for wpt)
 TABLE9 = {
@@ -5014,6 +5060,528 @@ def _train_families_card_vs_cpu(torch):
     return out
 
 
+class _MeshShape:
+    """A mesh's axis names and sizes, for ``partition_specs`` before any
+    rank exists."""
+
+    def __init__(self, shape, axes=("data", "model")):
+        self.axis_names = tuple(axes)
+        self.shape = dict(zip(axes, shape))
+
+
+def _sharded_lm_config():
+    """``deepseek-v2-236b`` at full width with ``SHARDED_LM_LAYERS``
+    layers and ``SHARDED_LM_EXPERTS`` experts, the plain attention's
+    query blocks ``SHARDED_LM_ATTN_CHUNK`` rows."""
+    import dataclasses
+
+    from repro_torch.configs.deepseek_v2_236b import CONFIG
+
+    return dataclasses.replace(CONFIG, num_layers=SHARDED_LM_LAYERS,
+                               attn_chunk=SHARDED_LM_ATTN_CHUNK,
+                               moe=dataclasses.replace(CONFIG.moe,
+                                                       num_experts=SHARDED_LM_EXPERTS))
+
+
+def _sharded_lm_reckoning(torch):
+    """The parameters of the cut config and, on ``SHARDED_LM_MESH`` under
+    ``TRAIN_RULES``, one rank's slices, the leaves it gathers for its
+    forward and their bytes: parameters by their dtypes, AdamW's float32
+    mu and nu beside the slices, gradients as the gathered leaves."""
+    import math as m
+
+    from repro_torch.convert import flatten
+    from repro_torch.distributed.sharding import TRAIN_RULES
+    from repro_torch.models import build_model
+    from repro_torch.models.common import partition_specs
+
+    cfg = _sharded_lm_config()
+    model = build_model(cfg, device="meta")
+    mesh = _MeshShape(SHARDED_LM_MESH)
+    specs = flatten(partition_specs(model.stacked_param_specs(), TRAIN_RULES, mesh))
+    leaves = flatten(model.stacked_param_specs())
+    out = dict(experts=0, layer_other=0, embed=0, rank_slice=0, rank_slice_bytes=0,
+               rank_gathered_bytes=0)
+    n_model = SHARDED_LM_MESH[1]
+    for k, spec in leaves.items():
+        n = m.prod(spec.shape)
+        size = torch.empty((), dtype=spec.dtype).element_size()
+        expert = spec.logical[1:2] == ("expert",)
+        key = "experts" if expert else ("embed" if k.startswith("embed.") else "layer_other")
+        out[key] += n
+        split = m.prod(mesh.shape[a] for ax in specs[k] if ax
+                       for a in ((ax,) if isinstance(ax, str) else ax))
+        out["rank_slice"] += n // split
+        out["rank_slice_bytes"] += n // split * size
+        out["rank_gathered_bytes"] += (n // n_model if expert else n) * size
+    out["total"] = out["experts"] + out["layer_other"] + out["embed"]
+    out["rank_moments_bytes"] = 8 * out["rank_slice"]
+    out["one_rank_bytes"] = 2 * out["total"] * 2 + 8 * out["total"]   # bf16 w + g, f32 mu, nu
+    return out
+
+
+def _scale_routers(torch, params):
+    """``params`` (a rank's slices by name) with every MoE router scaled
+    by ``TRAIN_ROUTER_SCALE``, in place: the init's "scaled" std takes
+    the stack's length as the fan-in, 1 for one layer, and the routing
+    softmax of d_model 5120 would underflow to exact ties."""
+    with torch.no_grad():
+        for k, p in params.items():
+            if k.endswith(".router"):
+                p.mul_(TRAIN_ROUTER_SCALE)
+    return params
+
+
+def _sharded_lm_rank(rank, shape, batches, prompt, next_token):
+    """One rank of the sharded LM phase (spawned): the cut
+    ``deepseek-v2-236b`` on ``shape``, ``SHARDED_LM_STEPS`` steps of
+    ``make_train_step`` from ``init_state(SHARDED_LM_SEED)``, then
+    ``make_prefill_step`` on ``prompt`` and one ``make_decode_step`` on
+    its cache, from the seed's weights.  Returns the losses, grad norms,
+    step times and the collectives' time in each (every ``Mesh``
+    collective timed between two synchronizations), launch counts of the
+    steps and of the serving steps, how often ``moe_forward_ep`` ran, the
+    experts each expert leaf holds, the step-1 forward's routing and its
+    slots past capacity, a digest of every slice after the last step,
+    peak memory, and the serving steps' logits and times."""
+    import os
+
+    # four ranks share the card: segments that grow in place keep each
+    # rank's freed blocks reusable (a first run lost 3.75 GB a rank to
+    # reserved, unallocated blocks and ran out of memory)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.sharding import P, shard_leaf
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step, make_train_step
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.optim import OptimizerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lib = build.BUILD_DIR / f"librepro_torch_{build.source_hash()}.so"
+    if not lib.exists():
+        raise RuntimeError(f"rank {rank}: {lib} not built: the parent builds before spawning")
+    cfg = _sharded_lm_config()
+    mesh = make_mesh(shape, ("data", "model"), device="cuda")
+    coll = [0.0]
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                coll[0] += time.perf_counter() - t
+        return run
+
+    mesh.all_reduce, mesh.all_gather = timed(mesh.all_reduce), timed(mesh.all_gather)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = make_train_step(cfg, mesh, SHARDED_LM_BATCH, SHARDED_LM_SEQ,
+                             opt_cfg=OptimizerConfig(**SHARDED_LM_OPT), device="cuda")
+    params, opt = bundle.init_state(SHARDED_LM_SEED)
+    _scale_routers(torch, params)
+    local = [bundle.shard_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    experts = {k: int(p.shape[0]) for k, p in params.items()
+               if k.endswith(("ffn.wi_gate", "ffn.wi_up", "ffn.wo"))}
+
+    real_route, real_ep = moe_lib.route, moe_lib.moe_forward_ep
+    routes, dropped, ep_calls = [], [], [0]
+
+    def route(router_w, x, m):
+        idx, gates, aux = real_route(router_w, x, m)
+        if not routes:
+            routes.append(idx.to(torch.int16).cpu().numpy())
+        counts = torch.bincount(idx.reshape(-1), minlength=m.num_experts)
+        cap = moe_lib._capacity(idx.shape[0], m)
+        dropped.append(int((counts - cap).clamp(min=0).sum()))
+        return idx, gates, aux
+
+    def ep(*args, **kwargs):
+        ep_calls[0] += 1
+        return real_ep(*args, **kwargs)
+
+    moe_lib.route, moe_lib.moe_forward_ep = route, ep
+    losses, norms, step_s, coll_s = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts set to 0 just before, read just after
+    build.LAUNCHES.reset()
+    try:
+        for b in local:
+            coll[0] = 0.0
+            t = time.perf_counter()
+            params, opt, metrics = bundle.fn(params, opt, b)
+            losses.append(metrics["loss"].item())
+            norms.append(metrics["grad_norm"].item())
+            step_s.append(time.perf_counter() - t)
+            coll_s.append(coll[0])
+        train_launches = build.LAUNCHES.snapshot()
+        train_peak = torch.cuda.max_memory_allocated()
+        specs = {k: tuple(s) for k, s in bundle.in_specs[0].items()}
+        digests = {k: hashlib.sha1(p.detach().contiguous().view(torch.uint8).cpu().numpy()
+                                   .tobytes()).hexdigest() for k, p in params.items()}
+        del params, opt, local, bundle
+        _free(torch)
+
+        torch.cuda.reset_peak_memory_stats()
+        pre = make_prefill_step(cfg, mesh, SHARDED_LM_BATCH, SHARDED_LM_SEQ, device="cuda")
+        dec = make_decode_step(cfg, mesh, SHARDED_LM_BATCH,
+                               SHARDED_LM_SEQ + SHARDED_LM_DECODE_EXTRA, device="cuda")
+        serve_params = _scale_routers(torch, pre.init_params(SHARDED_LM_SEED))
+        ins = pre.shard_batch({"tokens": prompt})
+        n_ep = ep_calls[0]
+        torch.cuda.synchronize()
+        build.LAUNCHES.reset()
+        t = time.perf_counter()
+        logits, cache = pre.fn(serve_params, ins)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        prefill_launches = build.LAUNCHES.snapshot()
+        logical = dec.model.cache_logical_axes()
+        local_cache = {}
+        for k, c in cache.items():
+            pad = c.new_zeros(c.shape[:2] + (SHARDED_LM_DECODE_EXTRA,) + c.shape[3:])
+            beyond = P(*(None if n == "batch" else ax
+                         for n, ax in zip(logical[k], dec.in_specs[1]["cache"][k])))
+            local_cache[k] = shard_leaf(torch.cat([c, pad], dim=2), beyond, mesh).contiguous()
+        del cache
+        token = dec.shard_batch({"token": next_token})["token"]
+        build.LAUNCHES.reset()
+        t = time.perf_counter()
+        dlogits, _ = dec.fn(serve_params, {"token": token, "pos": SHARDED_LM_SEQ,
+                                           "cache": local_cache})
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+        decode_launches = build.LAUNCHES.snapshot()
+        serve_peak = torch.cuda.max_memory_allocated()
+        serve_ep = ep_calls[0] - n_ep
+    finally:
+        moe_lib.route, moe_lib.moe_forward_ep = real_route, real_ep
+    return {
+        "rank": rank, "coord": (mesh.coord("data"), mesh.coord("model")),
+        "backend": mesh.backend, "losses": losses, "grad_norms": norms, "step_s": step_s,
+        "collective_s": coll_s, "init_s": init_s, "init_peak": init_peak,
+        "train_peak": train_peak, "serve_peak": serve_peak,
+        "train_launches": train_launches, "prefill_launches": prefill_launches,
+        "decode_launches": decode_launches, "ep_calls_train": n_ep, "ep_calls_serve": serve_ep,
+        "experts": experts, "routes_step1": routes[0], "dropped": dropped,
+        "specs": specs, "digests": digests,
+        "prefill_logits": logits.float().cpu().numpy(), "prefill_s": prefill_s,
+        "decode_logits": dlogits.float().cpu().numpy(), "decode_s": decode_s,
+    }
+
+
+def _sharded_lm_smoke_rank(rank, batches):
+    """One rank of the SMOKE float32 check (spawned): ``deepseek-smoke``'s
+    train step on each of ``SHARDED_LM_SMOKE_MESHES``, 3 steps on the CPU
+    then the same on the card from the same slices (routers scaled by
+    ``TRAIN_ROUTER_SCALE``).  Returns each side's losses and grad norms,
+    the largest gaps between them, and the routing: every routed token's
+    experts on the card against the CPU's, a token whose set differs a
+    flip, with its top-k margin on the CPU; each step's forward calls are
+    compared (its first ``num_layers`` calls: remat's recomputations
+    follow them in an order the backward picks).  A mesh's run with a
+    flip is reported and not held (a flipped token's gradients differ by
+    construction), as ``_step_card_vs_cpu`` does."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.deepseek_v2_236b import SMOKE
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.optim import OptimizerConfig, adamw_init, wsd_schedule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    cfg = dataclasses.replace(SMOKE, param_dtype=torch.float32, compute_dtype=torch.float32,
+                              remat=True)
+    opt_cfg = OptimizerConfig(**SHARDED_LM_OPT)
+    real_route, routes = moe_lib.route, []
+
+    def route(router_w, x, m):
+        idx, gates, aux = real_route(router_w, x, m)
+        with torch.no_grad():
+            top = torch.topk(torch.softmax(x.to(m.router_dtype) @ router_w, dim=-1),
+                             m.top_k + 1, dim=-1).values
+            routes.append((np.sort(idx.cpu().numpy(), axis=1),
+                           (top[:, -2] - top[:, -1]).cpu().numpy()))
+        return idx, gates, aux
+
+    out = {}
+    moe_lib.route = route
+    try:
+        for shape in SHARDED_LM_SMOKE_MESHES:
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                mesh = make_mesh(shape, ("data", "model"), device=dev)
+                bundle = make_train_step(cfg, mesh, SHARDED_LM_SMOKE_BATCH,
+                                         SHARDED_LM_SMOKE_SEQ, opt_cfg=opt_cfg, device=dev)
+                if dev == "cpu":
+                    start = _scale_routers(torch, bundle.init_params(SHARDED_LM_SEED))
+                params = {k: p.clone().to(mesh.device) for k, p in start.items()}
+                opt = adamw_init(params, opt_cfg)
+                losses, norms, forward, calls, lrs, slices = [], [], [], [], [], []
+                for i, b in enumerate(batches):
+                    routes.clear()
+                    params, opt, metrics = bundle.fn(params, opt, bundle.shard_batch(b))
+                    losses.append(metrics["loss"].item())
+                    norms.append(metrics["grad_norm"].item())
+                    lrs.append(wsd_schedule(opt_cfg, opt["step"]).item())
+                    forward += routes[:cfg.num_layers]
+                    calls.append(len(routes))
+                    if i in (0, len(batches) - 1):     # copies: the step updates in place
+                        slices.append({k: p.cpu().numpy().copy() for k, p in params.items()})
+                runs[dev] = (np.array(losses), np.array(norms), slices, forward, calls)
+            (cl, cn, cp, cr, c_calls), (gl, gn, gp, gr, g_calls) = runs["cpu"], runs["cuda"]
+            flips = [(call, float(margin[i]))
+                     for call, ((ci, margin), (gi, _)) in enumerate(zip(cr, gr))
+                     for i in np.nonzero((ci != gi).any(axis=1))[0]]
+            over = {}
+            for (want, got), atol in zip(zip(cp, gp), (SHARDED_LM_SMOKE_TOL, SHARDED_LM_SMOKE_TOL
+                                                      + 2 * sum(lrs))):
+                over.update({f"{k} ({'step 1' if atol == SHARDED_LM_SMOKE_TOL else 'last'})":
+                             float(np.abs(got[k] - want[k]).max()) for k in want
+                             if not np.allclose(got[k], want[k], rtol=SHARDED_LM_SMOKE_TOL,
+                                                atol=atol)})
+            norm_rel = np.abs(gn - cn) / np.abs(cn)
+            out[shape] = {"cpu_losses": cl.tolist(), "card_losses": gl.tolist(),
+                          "cpu_grad_norms": cn.tolist(), "card_grad_norms": gn.tolist(),
+                          "loss_rel": float(np.max(np.abs(gl - cl) / np.abs(cl))),
+                          "grad_norm_rel": norm_rel.tolist(),
+                          "grad_norms_over": bool(
+                              norm_rel[0] > SHARDED_LM_SMOKE_TOL
+                              or (norm_rel[1:] > SHARDED_LM_SMOKE_LATER_NORM_RTOL).any()),
+                          "max_abs_slice_diff": [max(float(np.abs(g[k] - w[k]).max())
+                                                     for k in w) for w, g in zip(cp, gp)],
+                          "lr": lrs, "slices_over_tol": over, "forward_calls": len(cr),
+                          "calls_a_step": [c_calls, g_calls], "flips": len(flips),
+                          "max_flip_margin": max((m for _, m in flips), default=0.0),
+                          "first_flips": flips[:4], "held": not flips,
+                          "min_margin": float(min(m.min() for _, m in cr))}
+    finally:
+        moe_lib.route = real_route
+    return out
+
+
+def _sharded_lm_phase(torch, card):
+    """The sharded LM step on the card (``SHARDED_LM_*``): the reckoning
+    printed first; the cut ``deepseek-v2-236b`` on four gloo ranks of mesh
+    (2, 2), then on one NCCL rank of mesh (1, 1) (the unsharded path);
+    then the float32 SMOKE steps on the card against the CPU.  Checks
+    that each rank holds 16 experts and ran ``moe_forward_ep``, the
+    replicated slices are bit-identical across the ranks that hold them,
+    the losses and grad norms within ``SHARDED_LM_LOSS_RTOL`` and
+    ``SHARDED_LM_NORM_RTOL`` of the one rank's, no forward-only kernel in
+    a step, one ``flash_attention`` launch a prefill layer on every rank
+    and nothing else, the prefill and decode logits of each rank's rows
+    within ``SHARDED_LM_LOGIT_RTOL`` of the one rank's in relative norm,
+    and the SMOKE steps within ``SHARDED_LM_SMOKE_TOL`` (later steps as
+    the constants' comment says); counts the
+    tokens whose top-6 expert set differs from the one rank's.  Returns
+    the phase's record."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.distributed.spawn import spawn
+    from repro_torch.kernels import build
+
+    reckoning = _sharded_lm_reckoning(torch)
+    print(f"[sharded_lm] reckoning: {reckoning['total']:,} parameters ("
+          f"{reckoning['experts']:,} in {SHARDED_LM_EXPERTS} experts, "
+          f"{reckoning['layer_other']:,} other layer, {reckoning['embed']:,} tok + out); one "
+          f"rank holding it whole {reckoning['one_rank_bytes'] / 1e9:.2f} GB of bf16 weights "
+          f"and gradients and float32 moments, before AdamW's copies; on "
+          f"{SHARDED_LM_MESH} a rank holds {reckoning['rank_slice']:,} parameters in slices "
+          f"({reckoning['rank_slice_bytes'] / 1e9:.2f} GB, moments "
+          f"{reckoning['rank_moments_bytes'] / 1e9:.2f} GB) and gathers "
+          f"{reckoning['rank_gathered_bytes'] / 1e9:.2f} GB of weights for its forward "
+          f"(gradients the same again)", flush=True)
+    build.library()                  # the ranks load this build, never nvcc
+    _free(torch)
+    free_b, total_b = torch.cuda.mem_get_info()
+    parent = {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved(),
+              "card_free": free_b, "card_total": total_b}
+    print(f"[sharded_lm] this process holds {parent['allocated'] / 1e9:.3f} GB allocated, "
+          f"{parent['reserved'] / 1e9:.3f} GB reserved; the card has {free_b / 1e9:.2f} of "
+          f"{total_b / 1e9:.2f} GB free", flush=True)
+    rng = np.random.default_rng(SHARDED_LM_SEED)
+    vocab = _sharded_lm_config().vocab_size
+    b, s = SHARDED_LM_BATCH, SHARDED_LM_SEQ
+    toks = rng.integers(0, vocab, (SHARDED_LM_STEPS, b, s + 1)).astype(np.int32)
+    batches = [{"tokens": t[:, :-1].copy(), "labels": t[:, 1:].copy()} for t in toks]
+    prompt = rng.integers(0, vocab, (b, s)).astype(np.int32)
+    next_token = rng.integers(0, vocab, (b, 1)).astype(np.int32)
+    srng = np.random.default_rng(SHARDED_LM_SMOKE_SEED)
+    stoks = srng.integers(0, 512, (SHARDED_LM_STEPS, SHARDED_LM_SMOKE_BATCH,
+                                   SHARDED_LM_SMOKE_SEQ + 1)).astype(np.int32)
+    smoke_batches = [{"tokens": t[:, :-1].copy(), "labels": t[:, 1:].copy()} for t in stoks]
+    tmp = tempfile.mkdtemp(prefix="sharded_lm_")
+    try:
+        t = time.perf_counter()
+        four = spawn(_sharded_lm_rank, 4, f"{tmp}/rdv4", "gloo",
+                     args=(SHARDED_LM_MESH, batches, prompt, next_token),
+                     timeout_s=SHARDED_LM_TIMEOUT_S)
+        four_s = time.perf_counter() - t
+        t = time.perf_counter()
+        (one,) = spawn(_sharded_lm_rank, 1, f"{tmp}/rdv1", "nccl",
+                       args=((1, 1), batches, prompt, next_token),
+                       timeout_s=SHARDED_LM_TIMEOUT_S)
+        one_s = time.perf_counter() - t
+        t = time.perf_counter()
+        smoke = spawn(_sharded_lm_smoke_rank, 4, f"{tmp}/rdv_smoke", "gloo",
+                      args=(smoke_batches,), timeout_s=SHARDED_LM_TIMEOUT_S)
+        smoke_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    problems = []          # every check's failure, raised after the record prints
+    per = SHARDED_LM_EXPERTS // SHARDED_LM_MESH[1]
+    n_data = SHARDED_LM_MESH[0]
+    for r, want in [(r, per) for r in four] + [(one, SHARDED_LM_EXPERTS)]:
+        if not r["experts"] or set(r["experts"].values()) != {want}:
+            problems.append(f"rank {r['rank']} of {r['coord']} holds experts "
+                            f"{r['experts']}, expected {want} a leaf")
+        forward_only = {k: v for k, v in r["train_launches"].items()
+                        if k in FORWARD_ONLY_KERNELS}
+        if forward_only:
+            problems.append(f"rank {r['rank']}: a training step launched {forward_only}")
+        if r["prefill_launches"] != {"flash_attention": SHARDED_LM_LAYERS}:
+            problems.append(f"rank {r['rank']}'s prefill launched {r['prefill_launches']}: "
+                            f"expected flash_attention's FMA route (D = 192) once a layer")
+        if not all(np.isfinite(r["losses"])) or not np.isfinite(r["prefill_logits"]).all():
+            problems.append(f"rank {r['rank']}: non-finite losses or logits")
+    for r in four:
+        if r["ep_calls_train"] <= 0 or r["ep_calls_serve"] <= 0:
+            problems.append(f"rank {r['rank']} never ran moe_forward_ep "
+                            f"({r['ep_calls_train']}, {r['ep_calls_serve']})")
+        if r["losses"] != four[0]["losses"] or r["grad_norms"] != four[0]["grad_norms"]:
+            problems.append(f"rank {r['rank']} losses {r['losses']} != rank 0's")
+    if one["ep_calls_train"] or one["ep_calls_serve"]:
+        problems.append("the one rank took the expert-parallel forward")
+    # the ranks that hold one slice hold it bit for bit
+    held = {}
+    for r in four:
+        coord = dict(zip(("data", "model"), r["coord"]))
+        for k, spec in r["specs"].items():
+            used = sorted({a for ax in spec if ax
+                           for a in ((ax,) if isinstance(ax, str) else ax)})
+            key = (k, tuple(coord[a] for a in used))
+            if held.setdefault(key, r["digests"][k]) != r["digests"][k]:
+                problems.append(f"{k} differs between ranks holding the same slice {key}")
+    got_l, want_l = np.array(four[0]["losses"]), np.array(one["losses"])
+    got_n, want_n = np.array(four[0]["grad_norms"]), np.array(one["grad_norms"])
+    loss_rel = np.abs(got_l - want_l) / np.abs(want_l)
+    norm_rel = np.abs(got_n - want_n) / np.abs(want_n)
+    if (loss_rel > SHARDED_LM_LOSS_RTOL).any() or (norm_rel > SHARDED_LM_NORM_RTOL).any():
+        problems.append(f"four-rank losses {got_l} / grad norms {got_n} vs one rank's "
+                        f"{want_l} / {want_n}: rel {loss_rel} / {norm_rel}")
+
+    def rel(a, b_):
+        return float(np.linalg.norm(a - b_) / np.linalg.norm(b_))
+
+    rows = SHARDED_LM_BATCH // n_data
+    logit_rel, flips = {"prefill": [], "decode": []}, 0
+    tokens_a_shard = rows * SHARDED_LM_SEQ
+    for r in four:
+        d, m = r["coord"]
+        for part in ("prefill", "decode"):
+            mine = r[f"{part}_logits"]
+            logit_rel[part].append(rel(mine, one[f"{part}_logits"][d * rows:(d + 1) * rows]))
+        if m == 0:
+            a = np.sort(r["routes_step1"], axis=1)
+            w = np.sort(one["routes_step1"][d * tokens_a_shard:(d + 1) * tokens_a_shard], axis=1)
+            flips += int((a != w).any(axis=1).sum())
+    worst = {k: max(v) for k, v in logit_rel.items()}
+    if max(worst.values()) > SHARDED_LM_LOGIT_RTOL:
+        problems.append(f"each rank's logits against the one rank's rows, relative norm: "
+                        f"{logit_rel}")
+    bad_flips = {(r_i, str(k)): (v["flips"], v["first_flips"], v["calls_a_step"])
+                 for r_i, r in enumerate(smoke) for k, v in r.items()
+                 if v["max_flip_margin"] >= ROUTE_FLIP_MARGIN}
+    if bad_flips:
+        problems.append(f"SMOKE steps: expert choices differ between the card and the CPU "
+                        f"at margins >= {ROUTE_FLIP_MARGIN} (rank, mesh): (flips, first "
+                        f"(call, margin), route calls a step on CPU and card) {bad_flips}")
+    bad_smoke = {str(k): v for r in smoke for k, v in r.items() if v["held"]
+                 and (v["loss_rel"] > SHARDED_LM_SMOKE_TOL or v["grad_norms_over"]
+                      or v["slices_over_tol"])}
+    if bad_smoke:
+        problems.append(f"SMOKE float32 steps on the card against the CPU: {bad_smoke}")
+
+    after = slice(1, None)
+    record = {
+        "config": "deepseek-v2-236b", "card": card,
+        "cuts": {"layers": [SHARDED_LM_LAYERS, 60], "experts": [SHARDED_LM_EXPERTS, 160]},
+        "reckoning": reckoning, "parent_memory": parent,
+        "batch": [SHARDED_LM_BATCH, SHARDED_LM_SEQ], "attn_chunk": SHARDED_LM_ATTN_CHUNK,
+        "steps": SHARDED_LM_STEPS,
+        "four": {"mesh": list(SHARDED_LM_MESH), "backend": "gloo", "wall_s": four_s,
+                 "step_s": [r["step_s"] for r in four],
+                 "step_s_after_first_mean": statistics.mean(
+                     x for r in four for x in r["step_s"][after]),
+                 "collective_s": [r["collective_s"] for r in four],
+                 "collective_share_after_first": statistics.mean(
+                     c / t for r in four for c, t in zip(r["collective_s"][after],
+                                                         r["step_s"][after])),
+                 "init_s": [r["init_s"] for r in four],
+                 "init_peak": [r["init_peak"] for r in four],
+                 "train_peak": [r["train_peak"] for r in four],
+                 "serve_peak": [r["serve_peak"] for r in four],
+                 "losses": four[0]["losses"], "grad_norms": four[0]["grad_norms"],
+                 "train_launches": [r["train_launches"] for r in four],
+                 "prefill_launches": [r["prefill_launches"] for r in four],
+                 "decode_launches": [r["decode_launches"] for r in four],
+                 "prefill_s": [r["prefill_s"] for r in four],
+                 "decode_s": [r["decode_s"] for r in four],
+                 "ep_calls": [[r["ep_calls_train"], r["ep_calls_serve"]] for r in four],
+                 "dropped": [r["dropped"] for r in four]},
+        "one": {"mesh": [1, 1], "backend": "nccl", "wall_s": one_s, "step_s": one["step_s"],
+                "collective_s": one["collective_s"], "init_s": one["init_s"],
+                "train_peak": one["train_peak"], "serve_peak": one["serve_peak"],
+                "losses": one["losses"], "grad_norms": one["grad_norms"],
+                "prefill_launches": one["prefill_launches"],
+                "decode_launches": one["decode_launches"], "prefill_s": one["prefill_s"],
+                "decode_s": one["decode_s"], "dropped": one["dropped"]},
+        "loss_rel": loss_rel.tolist(), "grad_norm_rel": norm_rel.tolist(),
+        "logit_rel": logit_rel, "routing_flips_step1": flips,
+        "routed_tokens_step1": SHARDED_LM_BATCH * SHARDED_LM_SEQ,
+        "smoke": {"wall_s": smoke_s, **{str(k): v for k, v in smoke[0].items()},
+                  "held": [[v["held"] for v in r.values()] for r in smoke],
+                  "min_margin": min(v["min_margin"] for r in smoke for v in r.values())},
+    }
+    print(f"[sharded_lm] {card}: deepseek-v2-236b, 1 of 60 layers, {SHARDED_LM_EXPERTS} of "
+          f"160 experts, on {SHARDED_LM_MESH} gloo ranks: steps {four[0]['step_s']} s "
+          f"(rank 0), collectives {four[0]['collective_s']} s, peaks "
+          f"{[r['train_peak'] / 1e9 for r in four]} GB a rank (init "
+          f"{[r['init_peak'] / 1e9 for r in four]}); one NCCL rank steps {one['step_s']} s, "
+          f"peak {one['train_peak'] / 1e9:.2f} GB; losses {got_l.tolist()} vs "
+          f"{want_l.tolist()} (rel {loss_rel.max():.3e}), grad norms {got_n.tolist()} vs "
+          f"{want_n.tolist()} (rel {norm_rel.max():.3e}); routing flips at step 1 {flips} of "
+          f"{SHARDED_LM_BATCH * SHARDED_LM_SEQ} tokens; slots past capacity {four[0]['dropped']} "
+          f"(rank 0) vs {one['dropped']}; prefill {[r['prefill_s'] for r in four]} s "
+          f"launches {four[0]['prefill_launches']}, logits rel {worst}; SMOKE float32 card vs "
+          f"CPU {[(str(k), v['loss_rel'], v['grad_norm_rel'], v['max_abs_slice_diff'], v['held']) for k, v in smoke[0].items()]}, "
+          f"smallest top-k margin {record['smoke']['min_margin']:.3e}; wall {four_s:.1f} + "
+          f"{one_s:.1f} + {smoke_s:.1f} s", flush=True)
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return record
+
+
 def main() -> int:
     torch, card = _setup()
     import numpy as np
@@ -5192,6 +5760,9 @@ def main() -> int:
     print(json.dumps({"lm_train_families": _lm_train_families_path(torch)}), flush=True)
     print(f"[phase] LM training, SSM and encoder-decoder families "
           f"{time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    print(json.dumps({"sharded_lm": _sharded_lm_phase(torch, card)}), flush=True)
+    print(f"[phase] sharded LM step {time.perf_counter() - t:.1f} s", flush=True)
     print(f"[phase] total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": results}))
     print(card)

@@ -53,18 +53,18 @@ def gqa_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = cfg.param_dtype
     specs = {
-        "wq": ParamSpec((d, h, hd), dt, "scaled"),
-        "wk": ParamSpec((d, kvh, hd), dt, "scaled"),
-        "wv": ParamSpec((d, kvh, hd), dt, "scaled"),
-        "wo": ParamSpec((h, hd, d), dt, "scaled"),
+        "wq": ParamSpec((d, h, hd), dt, "scaled", logical=("embed", "heads", None)),
+        "wk": ParamSpec((d, kvh, hd), dt, "scaled", logical=("embed", "kv_heads", None)),
+        "wv": ParamSpec((d, kvh, hd), dt, "scaled", logical=("embed", "kv_heads", None)),
+        "wo": ParamSpec((h, hd, d), dt, "scaled", logical=("heads", None, "embed")),
     }
     if cfg.qkv_bias:
-        specs["bq"] = ParamSpec((h, hd), dt, "zeros")
-        specs["bk"] = ParamSpec((kvh, hd), dt, "zeros")
-        specs["bv"] = ParamSpec((kvh, hd), dt, "zeros")
+        specs["bq"] = ParamSpec((h, hd), dt, "zeros", logical=("heads", None))
+        specs["bk"] = ParamSpec((kvh, hd), dt, "zeros", logical=("kv_heads", None))
+        specs["bv"] = ParamSpec((kvh, hd), dt, "zeros", logical=("kv_heads", None))
     if cfg.qk_norm:
-        specs["q_norm"] = ParamSpec((hd,), torch.float32, "ones")
-        specs["k_norm"] = ParamSpec((hd,), torch.float32, "ones")
+        specs["q_norm"] = ParamSpec((hd,), torch.float32, "ones", logical=(None,))
+        specs["k_norm"] = ParamSpec((hd,), torch.float32, "ones", logical=(None,))
     return specs
 
 

@@ -3,9 +3,13 @@
 A port of the reference's ``repro.models.common``: the config dataclasses
 with torch dtypes in place of ``jnp`` dtypes, and ``ParamSpec`` trees
 (shape, dtype, initializer, logical axes) from which a model builds its
-parameters, and ``partition_specs``, the spec tree of a ``ParamSpec``
-tree under a rule table on a mesh.  DLRM, the MoE FFN and MLA name
-their logical axes; the other LM leaves wait for the sharded LM step.
+parameters; ``partition_specs``, the spec tree of a ``ParamSpec`` tree
+under a rule table on a mesh; ``stack_tree``, the reference's stacking of
+a layer's tree on a leading "stack" axis; and ``abstract_params``, the
+torch meaning of the reference's ``jax.ShapeDtypeStruct`` stand-ins:
+tensors on the ``meta`` device, shapes and dtypes without storage, so a
+full-width config costs nothing to describe.  Every leaf of every model
+names its logical axes, as in the reference.
 
 Initializers are the reference's (``_init_leaf``): ``zeros``, ``ones``,
 ``scaled`` (normal with std ``scale / sqrt(shape[0])``, drawn in float32
@@ -172,6 +176,20 @@ def stacked(spec: ParamSpec, n: int) -> ParamSpec:
     """Add a leading layer ("stack") dimension, as the reference does."""
     logical = None if spec.logical is None else ("stack",) + spec.logical
     return dataclasses.replace(spec, shape=(n,) + spec.shape, logical=logical)
+
+
+def stack_tree(spec_tree: Any, n: int) -> Any:
+    """Every leaf of a tree ``stacked`` over ``n`` layers."""
+    if isinstance(spec_tree, dict):
+        return {k: stack_tree(v, n) for k, v in spec_tree.items()}
+    return stacked(spec_tree, n)
+
+
+def abstract_params(spec_tree: Any) -> Any:
+    """A ``meta`` tensor of each leaf's shape and dtype (nested dicts)."""
+    if isinstance(spec_tree, dict):
+        return {k: abstract_params(v) for k, v in spec_tree.items()}
+    return torch.empty(spec_tree.shape, dtype=spec_tree.dtype, device="meta")
 
 
 DRAW_ELEMENTS = 1 << 30      # the largest float32 draw ``init_leaf`` makes at once

@@ -43,8 +43,9 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve
+from repro_torch.distributed.collectives import reduce_from
 from repro_torch.kernels import ops
-from repro_torch.models.common import ParamSpec
+from repro_torch.models.common import ParamSpec, abstract_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,21 +110,6 @@ def _mlp_specs(dims, dtype) -> Dict[str, ParamSpec]:
         specs[f"w{i}"] = ParamSpec((din, dout), dtype, "scaled", logical=("embed", "mlp"))
         specs[f"b{i}"] = ParamSpec((dout,), dtype, "zeros", logical=(None,))
     return specs
-
-
-class _ModelSum(torch.autograd.Function):
-    """The sum of a partial over the mesh's "model" axis.  Backward is the
-    identity: every model rank computes the same loss from the summed
-    tensor, so each partial's gradient is the sum's gradient (a summing
-    backward would scale it by the axis size)."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        return mesh.all_reduce(x, "model")
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
 
 
 class _BagSum(torch.autograd.Function):
@@ -215,6 +201,15 @@ class DLRM(nn.Module):
                 std = 1.0 / math.sqrt(max(p.shape[0], 1))
                 val = std * torch.randn(p.shape, generator=gen, dtype=torch.float32)
             p.copy_(val.to(p.dtype))
+
+    def init(self, seed: int = 0) -> "DLRM":
+        """``init_weights(seed)``, returning the model."""
+        self.init_weights(seed)
+        return self
+
+    def abstract(self) -> Dict[str, Any]:
+        """The reference's parameter tree as ``meta`` tensors."""
+        return abstract_params(self.param_specs())
 
     def param_specs(self) -> Dict[str, Any]:
         """The reference's spec tree with its logical axes: tables
@@ -368,7 +363,7 @@ class DLRM(nn.Module):
         flat = (torch.where(sel, local, 0) + offs).to(torch.int32).reshape(b * t, l)
         w = (mask * sel).to(tables.dtype).reshape(b * t, l)
         part = _BagSum.apply(tables.reshape(-1, c.embed_dim), flat, w).reshape(b, t, c.embed_dim)
-        part = _ModelSum.apply(part, mesh)
+        part = reduce_from(part, mesh, "model")
         denom = torch.maximum(mask.sum(dim=2), torch.ones((), device=mask.device))
         return part / denom[..., None].to(part.dtype)
 

@@ -20,7 +20,7 @@ from repro_torch.models.common import ModelConfig, ParamSpec
 
 
 def rmsnorm_spec(dim: int) -> ParamSpec:
-    return ParamSpec((dim,), torch.float32, "ones")
+    return ParamSpec((dim,), torch.float32, "ones", logical=("embed",))
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -51,9 +51,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def mlp_specs(d_model: int, d_ff: int, dtype) -> Dict[str, ParamSpec]:
     return {
-        "wi_gate": ParamSpec((d_model, d_ff), dtype, "scaled"),
-        "wi_up": ParamSpec((d_model, d_ff), dtype, "scaled"),
-        "wo": ParamSpec((d_ff, d_model), dtype, "scaled"),
+        "wi_gate": ParamSpec((d_model, d_ff), dtype, "scaled", logical=("embed", "mlp")),
+        "wi_up": ParamSpec((d_model, d_ff), dtype, "scaled", logical=("embed", "mlp")),
+        "wo": ParamSpec((d_ff, d_model), dtype, "scaled", logical=("mlp", "embed")),
     }
 
 
@@ -68,9 +68,11 @@ def mlp(params, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    specs = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model), cfg.param_dtype)}
+    specs = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model), cfg.param_dtype,
+                              logical=("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        specs["out"] = ParamSpec((cfg.d_model, cfg.vocab_size), cfg.param_dtype, "scaled")
+        specs["out"] = ParamSpec((cfg.d_model, cfg.vocab_size), cfg.param_dtype, "scaled",
+                                 logical=("embed", "vocab"))
     return specs
 
 

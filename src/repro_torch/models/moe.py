@@ -21,8 +21,11 @@ rank holds its ``num_experts / n_model`` slice of the three expert leaves
 (``expert_rows``; ``repro_torch.convert.moe_shard_from_numpy`` cuts it)
 and the whole router, routes the tokens it holds (its data shard) with
 global expert ids, computes only its own experts with the capacity of its
-local token count, and the partial outputs are summed over "model" with
-``Mesh.all_reduce``; aux is averaged over "model".
+local token count, and the partial outputs are summed over "model"; aux
+is averaged over "model".  Under autograd (the sharded train step) the
+sums pass gradients through and the tokens' and router's gradients are
+summed over "model" (``distributed.collectives``): the backward of the
+reference's ``shard_map``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import copy_to, reduce_from
 from repro_torch.distributed.context import current_context
 from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig, MoEConfig, ParamSpec
@@ -51,11 +55,7 @@ def moe_specs(cfg: ModelConfig, moe: Optional[MoEConfig] = None) -> Dict[str, An
     }
     if m.num_shared_experts:
         shared_ff = m.shared_d_ff or m.num_shared_experts * m.d_ff
-        specs["shared"] = {
-            name: ParamSpec(s.shape, s.dtype, s.init, s.scale, logical=axes)
-            for (name, s), axes in zip(layers.mlp_specs(d, shared_ff, dt).items(),
-                                       (("embed", "mlp"), ("embed", "mlp"), ("mlp", "embed")))
-        }
+        specs["shared"] = layers.mlp_specs(d, shared_ff, dt)
     return specs
 
 
@@ -171,11 +171,15 @@ def moe_forward_ep(params, x: torch.Tensor, cfg: ModelConfig, mesh,
         raise ValueError(f"rank holds {p['wi_gate'].shape[0]} experts, expected its slice "
                          f"[{lo}, {hi}) of {m.num_experts}")
     xf = x.reshape(b * s, d)
-    idx, gates, aux = route(p["router"], xf, m)
-    y_partial = _dispatch_compute(xf, idx, gates, p["wi_gate"], p["wi_up"], p["wo"],
+    # the region of this rank's experts: its inputs' gradients are summed
+    # over "model" (each rank differentiates only its experts' share), its
+    # outputs' passed through (each rank's loss reads the sums)
+    xr, router = copy_to(xf, mesh, "model"), copy_to(p["router"], mesh, "model")
+    idx, gates, aux = route(router, xr, m)
+    y_partial = _dispatch_compute(xr, idx, gates, p["wi_gate"], p["wi_up"], p["wo"],
                                   m.num_experts, lo, _capacity(b * s, m))
-    y = mesh.all_reduce(y_partial, "model")
-    aux = mesh.all_reduce(aux, "model") / mesh.shape["model"]
+    y = reduce_from(y_partial, mesh, "model")
+    aux = reduce_from(aux, mesh, "model") / mesh.shape["model"]
     if m.num_shared_experts:
         y = y + layers.mlp(p["shared"], xf)
     return y.reshape(b, s, d), aux

@@ -62,19 +62,19 @@ def ssm_specs(cfg: ModelConfig, d_model: Optional[int] = None) -> Dict[str, Para
     gn = s.n_groups * s.d_state
     dt = cfg.param_dtype
     return {
-        "wz": ParamSpec((d, din), dt, "scaled"),
-        "wx": ParamSpec((d, din), dt, "scaled"),
-        "wB": ParamSpec((d, gn), dt, "scaled"),
-        "wC": ParamSpec((d, gn), dt, "scaled"),
-        "wdt": ParamSpec((d, h), dt, "scaled"),
-        "conv_x": ParamSpec((s.conv_width, din), dt, "scaled"),
-        "conv_B": ParamSpec((s.conv_width, gn), dt, "scaled"),
-        "conv_C": ParamSpec((s.conv_width, gn), dt, "scaled"),
-        "A_log": ParamSpec((h,), torch.float32, "zeros"),
-        "D": ParamSpec((h,), torch.float32, "ones"),
-        "dt_bias": ParamSpec((h,), torch.float32, "zeros"),
-        "norm": ParamSpec((din,), torch.float32, "ones"),
-        "out": ParamSpec((din, d), dt, "scaled"),
+        "wz": ParamSpec((d, din), dt, "scaled", logical=("embed", "mlp")),
+        "wx": ParamSpec((d, din), dt, "scaled", logical=("embed", "mlp")),
+        "wB": ParamSpec((d, gn), dt, "scaled", logical=("embed", None)),
+        "wC": ParamSpec((d, gn), dt, "scaled", logical=("embed", None)),
+        "wdt": ParamSpec((d, h), dt, "scaled", logical=("embed", "ssm_heads")),
+        "conv_x": ParamSpec((s.conv_width, din), dt, "scaled", logical=(None, "mlp")),
+        "conv_B": ParamSpec((s.conv_width, gn), dt, "scaled", logical=(None, None)),
+        "conv_C": ParamSpec((s.conv_width, gn), dt, "scaled", logical=(None, None)),
+        "A_log": ParamSpec((h,), torch.float32, "zeros", logical=("ssm_heads",)),
+        "D": ParamSpec((h,), torch.float32, "ones", logical=("ssm_heads",)),
+        "dt_bias": ParamSpec((h,), torch.float32, "zeros", logical=("ssm_heads",)),
+        "norm": ParamSpec((din,), torch.float32, "ones", logical=("mlp",)),
+        "out": ParamSpec((din, d), dt, "scaled", logical=("mlp", "embed")),
     }
 
 

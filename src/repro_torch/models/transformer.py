@@ -38,25 +38,30 @@ returned one), and returns that cache.
 ``init(seed)`` draws every leaf on the model's device from a
 ``torch.Generator`` seeded with ``seed``, one layer at a time, straight
 into the parameter's storage (``models.common.init_leaf``), so a
-full-width model never passes through host memory.
+full-width model never passes through host memory.  ``abstract()`` is
+the reference's stacked tree as ``meta`` tensors, and
+``device="meta"`` builds the module without storage.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Iterator, Tuple, Union
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
+from repro_torch.distributed.context import current_context, sharding_context
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
     ModelConfig,
     ParamSpec,
+    abstract_params,
     init_leaf,
     module_from_specs,
+    stack_tree,
     stacked,
 )
 
@@ -100,7 +105,10 @@ class DecoderLM(nn.Module):
         super().__init__()
         check_family(cfg, self.family)
         self.cfg = cfg
-        dev = resolve(device, type(self).__name__)
+        # "meta": the parameter tree without storage, which the sharded
+        # steps (``launch.steps``) bind each rank's tensors into
+        meta = torch.device(device).type == "meta"
+        dev = torch.device("meta") if meta else resolve(device, type(self).__name__)
         stacks = self.stacks()
         for key, spec in self.param_specs().items():
             if key in stacks:
@@ -153,20 +161,37 @@ class DecoderLM(nn.Module):
         many modules."""
         return {"layers": self.cfg.num_layers}
 
-    @torch.no_grad()
-    def init(self, seed: int = 0) -> "DecoderLM":
-        """Draw every parameter from ``seed`` on the model's device, leaf by
-        leaf in the reference's tree order (sorted names), a stacked leaf
-        one layer at a time with the stacked leaf's initializer."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+    def stacked_param_specs(self) -> Dict[str, Any]:
+        """The reference's ``param_specs``: each stack's leaves stacked on a
+        leading "stack" axis of its length."""
+        stacks = self.stacks()
+        return {k: stack_tree(v, stacks[k]) if k in stacks else v
+                for k, v in self.param_specs().items()}
+
+    def abstract(self) -> Dict[str, Any]:
+        """The reference's parameter tree as ``meta`` tensors."""
+        return abstract_params(self.stacked_param_specs())
+
+    def init_order(self) -> Iterator[Tuple[str, ParamSpec]]:
+        """(parameter name, the spec it is drawn by) in the order ``init``
+        draws them: the reference's tree order (sorted names), a stacked
+        leaf one layer at a time with the stacked leaf's spec."""
         stacks = self.stacks()
         for name, spec in sorted(_flatten_specs(self.param_specs()).items()):
             key, _, rest = name.partition(".")
             if key in stacks:
-                for layer in getattr(self, key):
-                    init_leaf(layer.get_parameter(rest), stacked(spec, stacks[key]), gen)
+                for i in range(stacks[key]):
+                    yield f"{key}.{i}.{rest}", stacked(spec, stacks[key])
             else:
-                init_leaf(self.get_parameter(name), spec, gen)
+                yield name, spec
+
+    @torch.no_grad()
+    def init(self, seed: int = 0) -> "DecoderLM":
+        """Draw every parameter from ``seed`` on the model's device
+        (``init_order``), straight into its storage."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        for name, spec in self.init_order():
+            init_leaf(self.get_parameter(name), spec, gen)
         return self
 
     # -- cache --------------------------------------------------------------
@@ -260,9 +285,21 @@ class DecoderLM(nn.Module):
         """``fn(*args)``, inside ``torch.utils.checkpoint`` when
         ``cfg.remat`` and grad is on (the reference's ``jax.checkpoint``
         of a scanned layer): its activations are recomputed in the
-        backward."""
+        backward, under the sharding context of the forward.  The
+        recomputation runs where autograd runs the backward, on a CUDA
+        device's own thread for a CUDA graph, which does not see this
+        thread's context: without it an expert-parallel MoE layer would
+        recompute as a one-device one."""
         if self.cfg.remat and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False)
+            ctx = current_context()
+            if ctx is None:
+                return checkpoint(fn, *args, use_reentrant=False)
+
+            def in_context(*a):
+                with sharding_context(*ctx):
+                    return fn(*a)
+
+            return checkpoint(in_context, *args, use_reentrant=False)
         return fn(*args)
 
     def backbone(self, x: torch.Tensor, positions: torch.Tensor):

@@ -104,9 +104,13 @@ def adamw_update(
     state: Dict[str, Any],
     cfg: OptimizerConfig,
     norm: Optional[torch.Tensor] = None,
+    ndim: Optional[Dict[str, int]] = None,
 ) -> Tuple[Tree, Dict[str, Any], torch.Tensor]:
     """Returns (new_params, new_state, grad_norm); the inputs are kept.
-    ``norm``: the global norm of a sharded tree (``clip_by_global_norm``)."""
+    ``norm``: the global norm of a sharded tree (``clip_by_global_norm``).
+    ``ndim``: a leaf's rank in the reference's tree where it differs from
+    the tensor's (a layer of a stacked leaf counts the stack's axis), which
+    decides its weight decay."""
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm)
     step = state["step"] + 1
     lr = wsd_schedule(cfg, step)
@@ -124,7 +128,7 @@ def adamw_update(
         # mhat / (sqrt(nhat) + eps) in one expression: no float32 copy of the
         # leaf outlives its use (a 622 M-row embedding is 2.5 GB a copy)
         delta = (mu32 / bc1) / (torch.sqrt(nu32 / bc2) + cfg.eps)
-        if p.dim() >= 2:  # decoupled weight decay on matrices only
+        if (ndim or {}).get(k, p.dim()) >= 2:  # decoupled weight decay on matrices only
             delta = delta + cfg.weight_decay * p.to(torch.float32)
         new_p[k] = (p.to(torch.float32) - lr * delta).to(p.dtype)
         del delta

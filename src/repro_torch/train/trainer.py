@@ -35,7 +35,13 @@ tree: each stack of ``convert.LM_STACKS`` stacked on axis 0 again
 so an LM checkpoint crosses between the packages as the DLRM one does.
 
 On a mesh (``mesh``, a ``launch.mesh.Mesh``; dense path only) every rank
-runs the loop: it holds its vocab slice of the tables
+runs the loop.  An LM takes the train step of ``launch.steps.make_train_step``
+(built for each global batch size the loop sees): the rank holds its
+slice of each parameter and of its AdamW moments by the rules' specs
+(the reference's layout, which ``init_state`` draws and slices and
+``remesh`` re-slices), gathers the leaves for its forward and, for an
+expert-parallel MoE, keeps its slice of the experts.  A DLRM rank holds
+its vocab slice of the tables
 (``models.dlrm.vocab_rows``) and of their AdamW moments, the MLPs whole,
 and its rows of each batch (split over the axes ``rules`` maps "batch"
 to).  The pooled bags come from ``DLRM.pooled_embeddings_sharded``, whose
@@ -49,9 +55,9 @@ and the port does not keep it.  ``init_state`` draws the one-device
 weights and slices them; ``load_state`` takes a rank's slices
 (``convert.dlrm_shard_from_numpy``); ``remesh(new_mesh, state)`` gathers
 the tables and moments and re-slices them for a new mesh over the same
-ranks.  A checkpoint holds whole tables in the reference's layout:
+ranks.  A checkpoint holds whole leaves in the reference's layout:
 gathered and written by rank 0, and read by every rank, which keeps its
-own rows, so it resumes on any mesh, on one device and in the reference.
+own slices, so it resumes on any mesh, on one device and in the reference.
 """
 from __future__ import annotations
 
@@ -67,8 +73,14 @@ import torch.distributed as dist
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.convert import flatten, nest, stack_layers, unstack_layers
 from repro_torch.device import resolve
-from repro_torch.distributed.sharding import TRAIN_RULES
-from repro_torch.launch.steps import batch_axes, batch_shardings, shard_batch
+from repro_torch.distributed.sharding import TRAIN_RULES, P, shard_index, shard_leaf
+from repro_torch.launch.steps import (
+    batch_axes,
+    batch_shardings,
+    gather_leaf,
+    make_train_step,
+    shard_batch,
+)
 from repro_torch.models import build_model
 from repro_torch.models.dlrm import DLRM, DLRMConfig, vocab_rows
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, counter, gauge
@@ -137,23 +149,28 @@ class Trainer:
         self._sparse = embedding_store is not None and dlrm
         self.mesh = mesh
         self.rules = rules
+        self.opt_cfg = opt_cfg or OptimizerConfig()
+        self._lm_mesh = mesh is not None and not dlrm
         if mesh is not None:
-            if not dlrm:
-                raise ValueError("Trainer(mesh=...) runs the sharded DLRM step; the sharded "
-                                 "LM step is not ported")
             if self._sparse:
                 raise ValueError("Trainer(mesh=...) runs the dense path; the tiered "
                                  "store's step runs on one device")
             if resolve(device, "Trainer").type != mesh.device.type:
                 raise ValueError(f"device {device} but the mesh's ranks are on {mesh.device}")
             device = mesh.device
-        kwargs = dict(tables=not self._sparse and mesh is None) if dlrm else {}
-        self.model = build_model(model_cfg, device=device, **kwargs)
-        self.device = self.model.device
         self.tables: Optional[torch.Tensor] = None
-        if mesh is not None:
-            self._place_tables()
-        self.opt_cfg = opt_cfg or OptimizerConfig()
+        self._slices: Dict[str, torch.Tensor] = {}
+        self._ndim: Optional[Dict[str, int]] = None
+        if self._lm_mesh:
+            self._place_slices()
+        else:
+            kwargs = dict(tables=not self._sparse and mesh is None) if dlrm else {}
+            self.model = build_model(model_cfg, device=device, **kwargs)
+            if not dlrm:
+                self._ndim = {k: len(s.shape) for k, s in self.model.init_order()}
+            if mesh is not None:
+                self._place_tables()
+        self.device = device if self._lm_mesh else self.model.device
         self.cfg = trainer_cfg or TrainerConfig()
         self.ckpt = (
             CheckpointManager(self.cfg.checkpoint_dir)
@@ -172,7 +189,8 @@ class Trainer:
 
     def _apply(self, params: Dict[str, torch.Tensor], grads, opt, norm=None):
         new_p, opt, gnorm = adamw_update(
-            {k: p.detach() for k, p in params.items()}, grads, opt, self.opt_cfg, norm)
+            {k: p.detach() for k, p in params.items()}, grads, opt, self.opt_cfg, norm,
+            self._ndim)
         with torch.no_grad():
             for k, p in params.items():
                 p.copy_(new_p[k])
@@ -220,12 +238,42 @@ class Trainer:
         c = self.model_cfg
         lo, hi = vocab_rows(c.vocab_per_table, self.mesh)
         self.tables = torch.nn.Parameter(torch.empty(
-            (c.num_tables, hi - lo, c.embed_dim), dtype=c.param_dtype, device=self.device))
+            (c.num_tables, hi - lo, c.embed_dim), dtype=c.param_dtype, device=self.mesh.device))
+
+    def _place_slices(self) -> None:
+        """An LM's train step on the mesh (for batches of one row, until
+        the loop sees others: the parameter layout does not depend on
+        them) and this rank's slice of each parameter."""
+        self._bundle = make_train_step(self.model_cfg, self.mesh, 1, 1, self.rules,
+                                       self.opt_cfg, self.mesh.device)
+        self.model, self._rows = self._bundle.model, 1
+        dtypes = {k: p.dtype for k, p in self.model.named_parameters()}
+        self._slices = {k: torch.empty(shape, dtype=dtypes[k], device=self.mesh.device)
+                        for k, shape in self._bundle.slice_shapes().items()}
+
+    def _lm_step(self, batch: Dict[str, Any]):
+        """The LM train step for batches of ``batch``'s global rows."""
+        rows = np.shape(batch["tokens"])[0]
+        if rows != self._rows:
+            seq = np.shape(batch["frames" if "frames" in batch else "tokens"])[1]
+            self._bundle = make_train_step(self.model_cfg, self.mesh, rows, seq, self.rules,
+                                           self.opt_cfg, self.mesh.device)
+            self.model, self._rows = self._bundle.model, rows
+        return self._bundle
+
+    def _specs(self) -> Dict[str, P]:
+        """The spec this rank holds each parameter by on its mesh."""
+        if self._lm_mesh:
+            return self._bundle.in_specs[0]
+        vocab = P(None, "model") if self.model._vocab_shards(self.mesh) > 1 else P()
+        return {k: vocab if k == "tables" else P() for k in self._live_params()}
 
     def _live_params(self) -> Dict[str, torch.Tensor]:
         """The parameters the step differentiates, by name in sorted order
-        (on a mesh, the rank's table slice among them; an LM's are its
-        named parameters)."""
+        (on a mesh, the rank's table slice among them, or an LM's slices;
+        an LM's are its named parameters)."""
+        if self._lm_mesh:
+            return self._slices
         if not isinstance(self.model, DLRM):
             return dict(sorted(self.model.named_parameters()))
         params = self.model.params()
@@ -238,12 +286,18 @@ class Trainer:
 
     def init_state(self, seed: int = 0) -> Dict[str, Any]:
         """Fresh weights from ``seed`` and a zero optimizer state.  On a
-        mesh: the one-device weights (drawn whole on the host), sliced."""
+        mesh: the one-device weights, sliced (a DLRM's drawn whole on the
+        host; an LM's drawn leaf by leaf on the rank's device,
+        ``StepBundle.init_params``)."""
         if self.mesh is None:
             if isinstance(self.model, DLRM):
                 self.model.init_weights(seed)
             else:
                 self.model.init(seed)
+            params = self._params()
+            return {"params": params, "opt": adamw_init(params, self.opt_cfg), "step": 0}
+        if self._lm_mesh:
+            self._slices = self._bundle.init_params(seed)
             params = self._params()
             return {"params": params, "opt": adamw_init(params, self.opt_cfg), "step": 0}
         full = DLRM(self.model_cfg, seed=seed, device="cpu").params()
@@ -322,45 +376,49 @@ class Trainer:
 
     # -- the mesh ------------------------------------------------------------
 
-    @staticmethod
-    def _map_tables(params, opt, fn):
-        """(params, opt) with ``fn`` applied to the tables and their moments."""
+    def _map_leaves(self, params, opt, fn):
+        """(params, opt) with ``fn(leaf, its spec)`` applied to the
+        parameters and their moments that the mesh splits."""
+        specs = self._specs()
+
         def on(tree):
-            return {k: fn(v) if k == "tables" else v for k, v in tree.items()}
+            return {k: fn(v, specs[k]) if len(specs[k]) else v for k, v in tree.items()}
 
         return on(params), {"mu": on(opt["mu"]), "nu": on(opt["nu"]), "step": opt["step"]}
 
     def _whole(self, params, opt, shapes_only: bool = False):
-        """(params, opt) with the tables and their moments gathered whole
-        over "model" (``shapes_only``: empty stand-ins of the whole shapes,
-        for a checkpoint template)."""
-        n = self.model._vocab_shards(self.mesh)
+        """(params, opt) with the split leaves and their moments gathered
+        whole (``shapes_only``: empty stand-ins of the whole shapes, for a
+        checkpoint template)."""
+        mesh = self.mesh
 
-        def whole(t):
-            if n == 1:
-                return t
+        def whole(t, spec):
             if shapes_only:
-                return torch.empty((t.shape[0], t.shape[1] * n, *t.shape[2:]), dtype=t.dtype,
-                                   device="meta")
-            return self.mesh.all_gather(t, "model", dim=1)
+                shape = [d * shard_index(ax, mesh)[0] if i < len(spec) else d
+                         for i, (d, ax) in enumerate(zip(t.shape, tuple(spec) + (None,) * t.dim()))]
+                return torch.empty(shape, dtype=t.dtype, device="meta")
+            return gather_leaf(t, spec, mesh)
 
-        return self._map_tables(params, opt, whole)
+        return self._map_leaves(params, opt, whole)
 
     def _slice(self, params, opt):
-        """(params, opt) with whole tables and moments cut to this rank's
-        rows."""
-        lo, hi = vocab_rows(self.model_cfg.vocab_per_table, self.mesh)
-        return self._map_tables(params, opt, lambda t: t[:, lo:hi].contiguous())
+        """(params, opt) with whole leaves and moments cut to this rank's
+        slices."""
+        return self._map_leaves(params, opt,
+                                lambda t, spec: shard_leaf(t, spec, self.mesh).contiguous())
 
     def remesh(self, new_mesh, state: Dict[str, Any]) -> Dict[str, Any]:
         """Elastic scaling: move to ``new_mesh`` (over the same ranks) and
         return ``state`` (as ``fit`` returns it) re-sliced for it; the
-        tables and their moments are gathered over the old mesh first."""
+        split leaves and their moments are gathered over the old mesh first."""
         if self.mesh is None or new_mesh.device != self.device:
             raise ValueError("remesh moves a mesh trainer to another mesh of its ranks' devices")
         params, opt = self._whole(state["params"], state["opt"])
         self.mesh = new_mesh
-        self._place_tables()
+        if self._lm_mesh:
+            self._place_slices()
+        else:
+            self._place_tables()
         params, opt = self._slice(params, opt)
         return self.load_state({"params": params, "opt": opt, "step": state["step"]})
 
@@ -409,10 +467,14 @@ class Trainer:
                 self.store.apply_sparse_update(
                     dpooled.cpu().numpy(), ids, smask, lr=float(lr)
                 )
+            elif self._lm_mesh:
+                te = t1
+                bundle = self._lm_step(batch)
+                _, opt, metrics = bundle.fn(self._slices, opt, bundle.shard_batch(batch))
+                loss, gnorm = metrics["loss"], metrics["grad_norm"]
             elif self.mesh is not None:
                 te = t1
-                specs = batch_shardings({k: np.shape(v) for k, v in batch.items()},
-                                        self.rules, self.mesh)
+                specs = batch_shardings(self.model, batch, self.rules, self.mesh)
                 opt, loss, gnorm = self._mesh_step(
                     opt, shard_batch(batch, specs, self.mesh), batch_axes(specs))
             else:
