@@ -275,7 +275,6 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor-core peak
 BATCH = 512
 # the trainer path's one cut: the store's host tier is numpy on the host,
@@ -450,6 +449,21 @@ SHARDED_LM_SMOKE_BATCH, SHARDED_LM_SMOKE_SEQ, SHARDED_LM_SMOKE_SEED = 4, 64, 2
 # (an embedding row whose uses cancel) turns into lr-sized differences
 SHARDED_LM_SMOKE_TOL = 1e-4
 SHARDED_LM_SMOKE_LATER_NORM_RTOL = 1e-3
+# the launch tooling phase: three production cells dry-run on the (16, 16)
+# VirtualMesh (launch/dryrun.py), each in a process of its own beside the
+# card's work; the LM training phase's qwen3-8b step (LM_TRAIN_*) and the
+# serving phase's whole qwen3-8b prefill (LM_BATCH x LM_PROMPT) traced on
+# the card (launch/hlo_analysis.py) and held to their meta dry runs: flops
+# identical, bytes within TOOLING_BYTES_RTOL (the same ops on both
+# devices), the card's peak memory within TOOLING_PEAK_RTOL of the dry
+# run's total; the sharded LM phase's step-1 collectives equal to its
+# (2, 2) dry run's
+TOOLING_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "prefill_32k"),
+                 ("deepseek-v2-236b", "train_4k"))
+TOOLING_TIMED = 3             # untraced steps and prefills timed after the traced one
+TOOLING_BYTES_RTOL = 1e-2
+TOOLING_PEAK_RTOL = 0.2
+TOOLING_DRYRUN_TIMEOUT_S = 300
 # the paper's Table 9 (tests/test_simulator.py): DPP worker throughput and
 # workers per trainer of RM1-RM3 on C-v1, held within 8% (12% for wpt)
 TABLE9 = {
@@ -664,13 +678,11 @@ def _kernel_checks(torch, operands, waves):
     from repro_torch.kernels import decode as kdecode
     from repro_torch.kernels import fused_transform as kft
     from repro_torch.kernels import ref
+    from repro_torch.launch.roofline import kernel_bound
 
-    def nbytes(*ts):
-        return sum(t.numel() * t.element_size() for t in ts)
-
-    # bounds: bytes count each input read once and each output written
-    # once; operations count ~12 integer ops per hashed, clamped or
-    # bucketized element and one compare per border for BUCKETIZE_F
+    # bounds: launch.roofline.kernel_work's bytes (each input read once and
+    # each output written once) and operations (~12 integer ops per hashed,
+    # clamped or bucketized element, one compare per border for BUCKETIZE_F)
 
     cases = []
     (words,) = operands["xor_decrypt"]
@@ -679,7 +691,7 @@ def _kernel_checks(torch, operands, waves):
         replaces="src/repro/kernels/decode.py:49",
         kernel=lambda: kdecode.xor_decrypt(words), plain=lambda: ref.xor_decrypt(words),
         library=lambda: torch.bitwise_xor(words, ref.XOR_KEY32),
-        bytes=2 * nbytes(words), ops=words.numel(),
+        bound=kernel_bound("xor_decrypt", words),
         shape=f"words {tuple(words.shape)}",
     ))
     # dense_unpack and ragged_gather by both routes each: the route the
@@ -690,7 +702,6 @@ def _kernel_checks(torch, operands, waves):
         raise RuntimeError(f"the main path's bitmap {tuple(bm.shape)} does not take the warp route")
     if kdecode.ragged_gather_route(idx, sh) != "vec":
         raise RuntimeError(f"the main path's idx {tuple(idx.shape)} does not take the vec route")
-    out_elems = bm.shape[0] * bm.shape[1] * 32
     for name, kernel_route, fn in (("dense_unpack_warp", "warp", kdecode.dense_unpack_warp),
                                    ("dense_unpack", "block", kdecode.dense_unpack_block)):
         cases.append(dict(
@@ -698,7 +709,7 @@ def _kernel_checks(torch, operands, waves):
             replaces="src/repro/kernels/decode.py:87",
             kernel=lambda fn=fn: fn(bm, vals),
             plain=lambda: ref.dense_unpack(bm, vals), library=None,
-            bytes=nbytes(bm, vals) + 4 * out_elems, ops=6 * out_elems,
+            bound=kernel_bound("dense_unpack", bm, vals),
             shape=f"bitmap {tuple(bm.shape)} values {tuple(vals.shape)}",
         ))
     for name, kernel_route, fn in (("ragged_gather_vec", "vec", kdecode.ragged_gather_vec),
@@ -708,7 +719,7 @@ def _kernel_checks(torch, operands, waves):
             replaces="src/repro/kernels/decode.py:125",
             kernel=lambda fn=fn: fn(src, idx, sh),
             plain=lambda: ref.ragged_gather(src, idx, sh), library=None,
-            bytes=nbytes(src, idx, sh) + nbytes(idx), ops=4 * idx.numel(),
+            bound=kernel_bound("ragged_gather", src, idx, sh),
             shape=f"src {tuple(src.shape)} idx {tuple(idx.shape)}",
         ))
     # fused_transform by both routes at each wave: the 16-byte-lane route
@@ -729,11 +740,8 @@ def _kernel_checks(torch, operands, waves):
                 plain=(lambda mat=mat, codes=codes, p0=p0, p1=p1, brd=brd:
                        ref.fused_transform(mat.T, codes, p0, p1, brd).T),
                 library=None,
-                bytes=2 * nbytes(mat) + nbytes(codes, p0, p1, brd),
-                ops=mat.shape[1] * sum(
-                    (brd.shape[1] if c == ref.OP_BUCKETIZE_F else 12)
-                    for c in codes.tolist()
-                ),
+                bound=kernel_bound("fused_transform", mat, codes, p0, p1, brd,
+                                   features_major=True),
                 shape=f"tile {tuple(mat.shape)} nb {brd.shape[1]} codes {present}",
             ))
 
@@ -753,21 +761,19 @@ def _kernel_checks(torch, operands, waves):
         call_ms = _call_ms(torch, c["kernel"])
         plain_call_ms = _call_ms(torch, c["plain"], iters=20)
         library_call_ms = _call_ms(torch, c["library"]) if c["library"] else None
-        bytes_ms = c["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = c["ops"] / FP32_OPS_PER_S * 1e3
+        bound_ms, bound_by = c["bound"][:2]
         rows.append(dict(
             name=c["name"], wave=c.get("wave"), shape=c["shape"],
             route="cuda", **({"kernel_route": c["kernel_route"]} if "kernel_route" in c else {}),
             source=c["source"], replaces=c["replaces"],
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms, call_ms=call_ms, plain_call_ms=plain_call_ms,
             library_call_ms=library_call_ms,
         ))
         print(f"[kernel] {c['name']}{'' if c.get('wave') is None else ' wave ' + str(c['wave'])}"
               f" {c['shape']}: bit-exact, kernel_ms={ms:.6f} plain_ms={plain_ms:.6f}"
-              f" library_ms={library_ms} bound_ms={max(bytes_ms, ops_ms):.6f}"
+              f" library_ms={library_ms} bound_ms={bound_ms:.6f}"
               f" call_ms={call_ms:.6f} plain_call_ms={plain_call_ms:.6f}"
               f" library_call_ms={library_call_ms}", flush=True)
     # xor_decrypt and torch.bitwise_xor in turns: is the kernel's gap to the
@@ -1855,6 +1861,7 @@ def _bag_checks(torch, operands, step_bags, launches):
 
     from repro_torch.kernels import embedding_bag as kbag
     from repro_torch.kernels import ref
+    from repro_torch.launch.roofline import kernel_bound
 
     routes = (("embedding_bag_warp", "warp", kbag.embedding_bag_warp),
               ("embedding_bag", "block", kbag.embedding_bag_block))
@@ -1878,22 +1885,15 @@ def _bag_checks(torch, operands, step_bags, launches):
                                           per_sample_weights=mask) / denom
         if not torch.allclose(library(), plain(), rtol=1e-5, atol=1e-6):
             raise RuntimeError(f"F.embedding_bag disagrees with the plain version at {label}")
-        b, l = ids.shape
-        e = table.shape[1]
         # the launch reads only the rows its ids name (every slot is read,
         # masked ones too), plus ids and mask, and writes the (b, e) output
         rows = int(torch.unique(ids).numel())
-        nbytes = rows * e * table.element_size() + sum(
-            t.numel() * t.element_size() for t in (ids, mask)) + 4 * b * e
-        flops = 2 * b * l * e
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / FP32_OPS_PER_S * 1e3
+        bound_ms, bound_by = kernel_bound("embedding_bag", table, ids, mask)[:2]
         common = dict(
             shape=f"table {tuple(table.shape)} ids/mask {tuple(ids.shape)} {label}, rows "
                   f"read {rows}",
             max_abs_err=err, plain_ms=_queued_ms(torch, plain, iters=5),
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bound_ms=bound_ms, bound_by=bound_by,
             library_ms=_queued_ms(torch, library),
             plain_call_ms=_call_ms(torch, plain, iters=20),
             library_call_ms=_call_ms(torch, library),
@@ -2604,6 +2604,7 @@ def _flash_checks(torch, operands, launches):
 
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
+    from repro_torch.launch.roofline import kernel_bound
 
     worst = {"flash_attention_sm90": 0.0, "flash_attention": 0.0}
     for layer, (q, k, v) in sorted(operands.items()):
@@ -2642,8 +2643,6 @@ def _flash_checks(torch, operands, launches):
         del want, want32, q32, k32, v32
 
     q, k, v = operands[LM_CAPTURE_LAYERS[0]]
-    b, h, s, d = q.shape
-    t = k.shape[2]
     plain = lambda: ref.flash_attention(q, k, v)
     library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
     lib_err, lib_share = _flash_close(library(), plain(), v, "bfloat16")
@@ -2651,11 +2650,7 @@ def _flash_checks(torch, operands, launches):
         raise RuntimeError(f"SDPA disagrees with the plain version: {lib_err:.3e} rms(v)")
     # bytes: q, k, v read once and out written once; operations: 2 products
     # of 2*D flops for each (query, key) pair the causal mask keeps
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) + q.numel() * q.element_size()
-    pairs = b * h * sum(min(i + 1, t) for i in range(s))
-    flops = 4 * d * pairs
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    bound_ms, bound_by, flops, nbytes = kernel_bound("flash_attention", q, k, v, causal=True)
     shape = (f"q {tuple(q.shape)} k/v {tuple(k.shape)} {str(q.dtype).split('.')[-1]} causal "
              f"(layer {LM_CAPTURE_LAYERS[0]} of the qwen3-8b prefill)")
     plain_ms = _queued_ms(torch, plain, iters=5)
@@ -2677,8 +2672,7 @@ def _flash_checks(torch, operands, launches):
             replaces="src/repro/kernels/flash_attention.py:62", shape=shape,
             launches=launches.get(name, 0), max_abs_err=worst[name],
             ms=_queued_ms(torch, kernel), plain_ms=plain_ms,
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms, call_ms=_call_ms(torch, kernel, iters=20),
             plain_call_ms=plain_call_ms, library_call_ms=library_call_ms,
         )
@@ -2875,6 +2869,7 @@ def _standalone_checks(torch, operands):
     from repro_torch.kernels import decode as kdecode
     from repro_torch.kernels import ref
     from repro_torch.kernels import sigrid_hash as ksigrid
+    from repro_torch.launch.roofline import kernel_bound
 
     rng = np.random.default_rng(21)
     ids = torch.from_numpy(rng.integers(-(2 ** 31), 2 ** 31, (
@@ -2889,15 +2884,14 @@ def _standalone_checks(torch, operands):
              replaces="src/repro/kernels/sigrid_hash.py:34",
              kernel=lambda: ksigrid.sigrid_hash(ids, salt, max_value),
              plain=lambda: ref.sigrid_hash(ids, salt, max_value), library=None,
-             bytes=8 * ids.numel(), ops=12 * ids.numel(),
+             bound=kernel_bound("sigrid_hash", ids, salt, max_value),
              shape=f"ids {tuple(ids.shape)} max_value {max_value}"),
         dict(name="bucketize", source="src/repro_torch/csrc/bucketize.cu",
              replaces="src/repro/kernels/bucketize.py:30",
              kernel=lambda: kbucketize.bucketize(dense, borders),
              plain=lambda: ref.bucketize(dense, borders),
              library=lambda: torch.bucketize(dense, borders, out_int32=True),
-             bytes=8 * dense.numel() + 4 * borders.numel(),
-             ops=dense.numel() * borders.numel(),
+             bound=kernel_bound("bucketize", dense, borders),
              shape=f"values {tuple(dense.shape)} borders {borders.numel()} "
                    f"(NaN {int(torch.isnan(dense).sum())})"),
     ]
@@ -2914,13 +2908,11 @@ def _standalone_checks(torch, operands):
         ms = _queued_ms(torch, c["kernel"])
         plain_ms = _queued_ms(torch, c["plain"], iters=5)
         library_ms = _queued_ms(torch, c["library"]) if c["library"] else None
-        bytes_ms = c["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = c["ops"] / FP32_OPS_PER_S * 1e3
+        bound_ms, bound_by = c["bound"][:2]
         row = dict(
             name=c["name"], shape=c["shape"], route="cuda", source=c["source"],
             replaces=c["replaces"], launches=0, max_abs_err=0, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms, call_ms=_call_ms(torch, c["kernel"]),
             plain_call_ms=_call_ms(torch, c["plain"], iters=20),
             library_call_ms=_call_ms(torch, c["library"]) if c["library"] else None,
@@ -2943,7 +2935,7 @@ def _standalone_checks(torch, operands):
                        ref.sigrid_hash(ids8, salt, max_value)):
         raise RuntimeError(f"sigrid_hash at {tuple(ids8.shape)} differs")
     rows[0]["batch8"] = dict(shape=list(ids8.shape),
-                             bound_ms=8 * ids8.numel() / HBM_BYTES_PER_S * 1e3,
+                             bound_ms=kernel_bound("sigrid_hash", ids8, salt, max_value)[0],
                              turns_ms=_sigrid_turns(torch, ids8, salt, max_value))
     print(f"[kernel] sigrid_hash 8-batch tile, bit-exact, in turns: "
           f"{json.dumps(rows[0]['batch8'])}", flush=True)
@@ -3065,19 +3057,11 @@ def _ssd_bound(x, b_, chunk):
     the operations of the chunked form with the causal half of each
     chunk's Q x Q products only (C.B^T and m.x over the lower triangle,
     C.state and the state update in full) at the bf16 tensor peak.
-    Returns (ms, bound_by, flops, bytes)."""
-    bsz, s, h, p = x.shape
-    n = b_.shape[3]
-    flops = 0
-    for c0 in range(0, s, chunk):
-        q = min(chunk, s - c0)
-        flops += q * (q + 1) // 2 * 2 * (n + p) + 4 * q * n * p
-    flops *= bsz * h
-    nbytes = (2 * x.numel() * x.element_size() + 2 * b_.numel() * b_.element_size()
-              + 4 * bsz * s * h + 4 * h + 4 * bsz * h * p * n)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_OPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), flops, nbytes
+    Returns (ms, bound_by, flops, bytes): ``launch.roofline.kernel_bound``,
+    whose count reads only x's and B's shapes and dtypes."""
+    from repro_torch.launch.roofline import kernel_bound
+
+    return kernel_bound("ssd_chunk_forward", x, None, None, b_, None, chunk=chunk)
 
 
 def _ssd_close(got, want, tol):
@@ -3712,6 +3696,7 @@ def _mla_flash_checks(torch, operands, launches):
 
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
+    from repro_torch.launch.roofline import kernel_bound
 
     worst = 0.0
     for layer, (q, k, v, kw) in sorted(operands.items()):
@@ -3752,8 +3737,6 @@ def _mla_flash_checks(torch, operands, launches):
 
     q, k, v, kw = operands[FAM_CAPTURE_LAYERS[0]]
     scale = kw["scale"]
-    b, h, s, d = q.shape
-    t = k.shape[2]
     kernel = lambda: kflash.flash_attention(q, k, v, causal=True, scale=scale)  # noqa: E731
     plain = lambda: ref.flash_attention(q, k, v, causal=True, scale=scale)  # noqa: E731
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -3764,11 +3747,8 @@ def _mla_flash_checks(torch, operands, launches):
     if lib_share > 1:
         raise RuntimeError(f"SDPA disagrees with the plain version in float32 at D=192: "
                            f"{lib_err:.3e} rms(v)")
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) + q.numel() * q.element_size()
-    pairs = b * h * sum(min(i + 1, t) for i in range(s))
-    flops = 4 * d * pairs
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    bound_ms, bound_by, flops, nbytes = kernel_bound("flash_attention", q, k, v, causal=True,
+                                                     scale=scale)
     shape = (f"q {tuple(q.shape)} k/v {tuple(k.shape)} bfloat16 causal, v padded 128 -> 192 "
              f"(layer {FAM_CAPTURE_LAYERS[0]} of the deepseek-v2-236b prefill)")
     row = dict(
@@ -3777,8 +3757,7 @@ def _mla_flash_checks(torch, operands, launches):
         replaces="src/repro/kernels/flash_attention.py:62", shape=shape, counter="flash_attention",
         launches=launches.get("flash_attention", 0), max_abs_err=worst,
         ms=_queued_ms(torch, kernel, iters=10), plain_ms=_queued_ms(torch, plain, iters=5),
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bound_ms=bound_ms, bound_by=bound_by,
         library_ms=_queued_ms(torch, library), call_ms=_call_ms(torch, kernel, iters=5),
         plain_call_ms=_call_ms(torch, plain, iters=5),
         library_call_ms=_call_ms(torch, library, iters=20), flops=flops, bytes=nbytes,
@@ -4160,6 +4139,7 @@ def _flash_row(torch, name, q, k, v, causal, launches, where):
 
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
+    from repro_torch.launch.roofline import kernel_bound
 
     if kflash.route(q, k, v) != "sm90":
         raise RuntimeError(f"{name}: the operands take the {kflash.route(q, k, v)} route")
@@ -4183,13 +4163,7 @@ def _flash_row(torch, name, q, k, v, causal, launches, where):
     if lib_share > 1:
         raise RuntimeError(f"{name}: SDPA disagrees with the plain version: {lib_err:.3e} rms(v)")
     del want32
-    b, h, s, d = q.shape
-    t = k.shape[2]
-    pairs = b * h * (sum(min(i + 1, t) for i in range(s)) if causal else s * t)
-    flops = 4 * d * pairs
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) + q.numel() * q.element_size()
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    bound_ms, bound_by, flops, nbytes = kernel_bound("flash_attention", q, k, v, causal=causal)
     kernel = lambda: kflash.flash_attention(q, k, v, causal=causal)  # noqa: E731
     plain = lambda: ref.flash_attention(q, k, v, causal=causal)  # noqa: E731
     shape = (f"q {tuple(q.shape)} k/v {tuple(k.shape)} bfloat16 "
@@ -4199,8 +4173,7 @@ def _flash_row(torch, name, q, k, v, causal, launches, where):
         replaces="src/repro/kernels/flash_attention.py:62", shape=shape,
         counter="flash_attention_sm90", launches=launches, max_abs_err=err_f,
         max_abs_err_bf16_plain=err, largest_scaled_score=s_max, ms=_queued_ms(torch, kernel),
-        plain_ms=_queued_ms(torch, plain, iters=5), bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        plain_ms=_queued_ms(torch, plain, iters=5), bound_ms=bound_ms, bound_by=bound_by,
         library_ms=_queued_ms(torch, library), call_ms=_call_ms(torch, kernel, iters=20),
         plain_call_ms=_call_ms(torch, plain, iters=5),
         library_call_ms=_call_ms(torch, library, iters=20), flops=flops, bytes=nbytes,
@@ -5155,7 +5128,7 @@ def _sharded_lm_rank(rank, shape, batches, prompt, next_token):
 
     from repro_torch.distributed.sharding import P, shard_leaf
     from repro_torch.kernels import build
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import make_mesh, record_collectives
     from repro_torch.launch.steps import make_decode_step, make_prefill_step, make_train_step
     from repro_torch.models import moe as moe_lib
     from repro_torch.optim import OptimizerConfig
@@ -5216,10 +5189,13 @@ def _sharded_lm_rank(rank, shape, batches, prompt, next_token):
     # the main path: counts set to 0 just before, read just after
     build.LAUNCHES.reset()
     try:
-        for b in local:
+        for i, b in enumerate(local):
             coll[0] = 0.0
             t = time.perf_counter()
-            params, opt, metrics = bundle.fn(params, opt, b)
+            with record_collectives() as log:
+                params, opt, metrics = bundle.fn(params, opt, b)
+            if i == 0:       # step 1's collectives: (kind, result bytes, axis, group)
+                collectives = [[c.kind, c.nbytes, c.axis, c.group] for c in log]
             losses.append(metrics["loss"].item())
             norms.append(metrics["grad_norm"].item())
             step_s.append(time.perf_counter() - t)
@@ -5274,7 +5250,7 @@ def _sharded_lm_rank(rank, shape, batches, prompt, next_token):
         "train_launches": train_launches, "prefill_launches": prefill_launches,
         "decode_launches": decode_launches, "ep_calls_train": n_ep, "ep_calls_serve": serve_ep,
         "experts": experts, "routes_step1": routes[0], "dropped": dropped,
-        "specs": specs, "digests": digests,
+        "specs": specs, "digests": digests, "collectives_step1": collectives,
         "prefill_logits": logits.float().cpu().numpy(), "prefill_s": prefill_s,
         "decode_logits": dlogits.float().cpu().numpy(), "decode_s": decode_s,
     }
@@ -5558,6 +5534,8 @@ def _sharded_lm_phase(torch, card):
                 "decode_s": one["decode_s"], "dropped": one["dropped"]},
         "loss_rel": loss_rel.tolist(), "grad_norm_rel": norm_rel.tolist(),
         "logit_rel": logit_rel, "routing_flips_step1": flips,
+        "rank0_coord": list(four[0]["coord"]),
+        "rank0_collectives_step1": four[0]["collectives_step1"],
         "routed_tokens_step1": SHARDED_LM_BATCH * SHARDED_LM_SEQ,
         "smoke": {"wall_s": smoke_s, **{str(k): v for k, v in smoke[0].items()},
                   "held": [[v["held"] for v in r.values()] for r in smoke],
@@ -5577,6 +5555,267 @@ def _sharded_lm_phase(torch, card):
           f"CPU {[(str(k), v['loss_rel'], v['grad_norm_rel'], v['max_abs_slice_diff'], v['held']) for k, v in smoke[0].items()]}, "
           f"smallest top-k margin {record['smoke']['min_margin']:.3e}; wall {four_s:.1f} + "
           f"{one_s:.1f} + {smoke_s:.1f} s", flush=True)
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return record
+
+
+def _op_count_diff(a, b):
+    """{op: (count in a, count in b)} where two traces' op counts differ."""
+    ca, cb = a.op_counts(), b.op_counts()
+    return {k: (ca.get(k, 0), cb.get(k, 0)) for k in sorted(set(ca) | set(cb))
+            if ca.get(k, 0) != cb.get(k, 0)}
+
+
+def _by_kind(log):
+    """{kind: [count, result bytes]} of a collective log of (kind, bytes, ...)."""
+    out = {}
+    for kind, nbytes, *_ in log:
+        c = out.setdefault(kind, [0, 0])
+        c[0] += 1
+        c[1] += nbytes
+    return out
+
+
+def _launch_tooling_phase(torch, card, lm_train, sharded_lm):
+    """The launch tooling against the card.  ``TOOLING_CELLS`` are dry-run
+    at production scale by ``python -m repro_torch.launch.dryrun``, each in
+    a process of its own started first, and must be ``ok``.  Meanwhile:
+    the LM training phase's step (qwen3-8b at every width, its depth cut to
+    ``LM_TRAIN_LAYERS``, ``LM_TRAIN_BATCH`` x ``LM_TRAIN_SEQ``, remat) by
+    ``make_train_step`` on a (1, 1) ``VirtualMesh`` on the card, one step
+    traced by the analyzer after a first one, then ``TOOLING_TIMED`` steps
+    timed with CUDA events, against the same step on ``meta``: flops
+    identical, bytes within ``TOOLING_BYTES_RTOL`` (ops whose counts differ
+    printed), the card's peak memory within ``TOOLING_PEAK_RTOL`` of the dry
+    run's ``total_bytes_per_device``; the roofline's compute and memory
+    terms beside the measured median step, and ``model_flops_estimate``'s
+    share of the bf16 peak beside the LM training phase's own.  Then the
+    serving phase's whole qwen3-8b prefill traced on the card: as many
+    ``flash_attention`` kernel ops as layers, equal to the launches, and
+    the totals of its ``meta`` dry run; the measured ``prefill_s`` beside
+    the roofline's ``step_time_s``.  Last, the sharded LM phase's rank 0
+    step-1 collectives against its dry run on a (2, 2) ``VirtualMesh``, by
+    kind, count and bytes.  Returns the phase's record."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.configs.qwen3_8b import CONFIG
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.hlo_analysis import analyze, memory_analysis, trace
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16, VirtualMesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptimizerConfig
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    tmp = tempfile.mkdtemp(prefix="dryrun_")
+    procs, problems, record = [], [], {"card": card}
+    axes = ("data", "model")
+    try:
+        for arch, shape_name in TOOLING_CELLS:
+            out = f"{tmp}/{arch}_{shape_name}.jsonl"
+            procs.append((arch, shape_name, out, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape_name, "--out", out], cwd=root, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+
+        # the LM training step on the card, traced, against its meta dry run
+        _free(torch)
+        cfg = dataclasses.replace(CONFIG, num_layers=LM_TRAIN_LAYERS)
+        shape = configs.ShapeSpec("lm_train", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
+        opt_cfg = OptimizerConfig(**LM_TRAIN_OPT)
+        bundle = make_train_step(cfg, VirtualMesh((1, 1), axes, device="cuda"), LM_TRAIN_BATCH,
+                                 LM_TRAIN_SEQ, opt_cfg=opt_cfg, device="cuda")
+        params, opt = bundle.init_state(0)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (LM_TRAIN_BATCH, LM_TRAIN_SEQ + 1),
+                             generator=gen, device="cuda", dtype=torch.int32)
+        batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+        params, opt, _ = bundle.fn(params, opt, batch)       # a first step: cuBLAS, caches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        card_tr = trace(bundle.fn, params, opt, batch)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t
+        card_peak = torch.cuda.max_memory_allocated()
+        params, opt, metrics = card_tr.result
+        card_tr.result = None
+        step_ms = []
+        for _ in range(TOOLING_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, opt, metrics = bundle.fn(params, opt, batch)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        loss = float(metrics["loss"])
+        del params, opt, metrics, bundle, batch, toks
+        _free(torch)
+        meta_b = make_train_step(cfg, VirtualMesh((1, 1), axes), LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                 opt_cfg=opt_cfg, device="meta")
+        meta_tr = trace(meta_b.fn, *dryrun.lm_args(meta_b, shape))
+        card_c, meta_c = analyze(card_tr), analyze(meta_tr)
+        mem = memory_analysis(meta_tr)
+        diff = _op_count_diff(card_tr, meta_tr)
+        bytes_rel = abs(card_c.bytes_accessed - meta_c.bytes_accessed) / meta_c.bytes_accessed
+        peak_rel = abs(card_peak - mem["total_bytes_per_device"]) / mem["total_bytes_per_device"]
+        median_ms = statistics.median(step_ms)
+        terms = rl.RooflineTerms(meta_c.flops, meta_c.bytes_accessed, 0.0, 1,
+                                 rl.model_flops_estimate(cfg, shape))
+        est_share = terms.model_flops / (lm_train["median_step_ms"] / 1e3) / PEAK_FLOPS_BF16
+        own_share = lm_train["model_flops_share"]
+        record["train_step"] = {
+            "layers": LM_TRAIN_LAYERS, "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ],
+            "card_flops": card_c.flops, "meta_flops": meta_c.flops,
+            "card_bytes": card_c.bytes_accessed, "meta_bytes": meta_c.bytes_accessed,
+            "bytes_rel": bytes_rel, "op_count_diff": {k: list(v) for k, v in diff.items()},
+            "ops": [len(card_tr.ops), len(meta_tr.ops)], "card_peak": card_peak,
+            "dry_run_memory": mem, "peak_rel": peak_rel, "traced_s": traced_s,
+            "step_ms": step_ms, "median_step_ms": median_ms, "loss": loss,
+            "compute_s": terms.compute_s, "memory_s": terms.memory_s,
+            "step_time_s": terms.step_time_s, "bottleneck": terms.bottleneck,
+            "model_flops_estimate": terms.model_flops,
+            "estimate_share_at_lm_train_step": est_share,
+            "estimate_share_at_this_step": terms.model_flops / (median_ms / 1e3) / PEAK_FLOPS_BF16,
+            "lm_train_model_flops": lm_train["model_flops"],
+            "lm_train_model_flops_share": own_share,
+            "share_gap": est_share - own_share,
+        }
+        print(f"[tooling] train step {cfg.name} {LM_TRAIN_LAYERS} layers {LM_TRAIN_BATCH}x"
+              f"{LM_TRAIN_SEQ}: flops card {card_c.flops:.0f} meta {meta_c.flops:.0f}; bytes card "
+              f"{card_c.bytes_accessed:.0f} meta {meta_c.bytes_accessed:.0f} (rel {bytes_rel:.2e}); "
+              f"ops {len(card_tr.ops)} / {len(meta_tr.ops)}, counts differing {diff}; peak card "
+              f"{card_peak} B, dry run {mem['total_bytes_per_device']} B (rel {peak_rel:.3f}; "
+              f"{mem}); compute_s {terms.compute_s:.6f} memory_s {terms.memory_s:.6f} "
+              f"(bottleneck {terms.bottleneck}) against the measured median step "
+              f"{median_ms / 1e3:.6f} s ({step_ms} ms, CUDA events; the traced step "
+              f"{traced_s:.2f} s wall); model_flops_estimate {terms.model_flops:.4e}, share "
+              f"{est_share:.4f} at the LM training phase's {lm_train['median_step_ms']:.3f} ms "
+              f"against that phase's {own_share:.4f} (its {lm_train['model_flops']:.4e} FLOPs), "
+              f"gap {est_share - own_share:+.4f}", flush=True)
+        if card_c.flops != meta_c.flops:
+            problems.append(f"train step flops: card {card_c.flops} != meta {meta_c.flops}")
+        if bytes_rel > TOOLING_BYTES_RTOL:
+            problems.append(f"train step bytes: card {card_c.bytes_accessed} vs meta "
+                            f"{meta_c.bytes_accessed} (rel {bytes_rel:.3e}); {diff}")
+        if peak_rel > TOOLING_PEAK_RTOL:
+            problems.append(f"train step peak: card {card_peak} vs dry run "
+                            f"{mem['total_bytes_per_device']} (rel {peak_rel:.3f})")
+        if not math.isfinite(loss):
+            problems.append(f"train step loss {loss}")
+        del card_tr, meta_tr
+
+        # the whole qwen3-8b prefill on the card, traced, against its meta dry run
+        model = build_model(CONFIG, device="cuda").init(0)
+        prompt = {"tokens": torch.randint(0, CONFIG.vocab_size, (LM_BATCH, LM_PROMPT),
+                                          generator=gen, device="cuda", dtype=torch.int32)}
+        with torch.no_grad():
+            model.prefill(prompt)                      # a first call
+            torch.cuda.synchronize()
+            build.LAUNCHES.reset()
+            card_tr = trace(model.prefill, prompt)
+            torch.cuda.synchronize()
+            launches = build.LAUNCHES.snapshot()
+            card_tr.result = None
+            prefill_s = []
+            for _ in range(TOOLING_TIMED):
+                t = time.perf_counter()
+                model.prefill(prompt)
+                torch.cuda.synchronize()
+                prefill_s.append(time.perf_counter() - t)
+            del model, prompt
+            _free(torch)
+            meta_tr = trace(build_model(CONFIG, device="meta").prefill,
+                            {"tokens": torch.empty((LM_BATCH, LM_PROMPT), dtype=torch.int32,
+                                                   device="meta")})
+        card_c, meta_c = analyze(card_tr), analyze(meta_tr)
+        diff = _op_count_diff(card_tr, meta_tr)
+        flash = launches.get("flash_attention_sm90", 0) + launches.get("flash_attention", 0)
+        pshape = configs.ShapeSpec("lm_prefill", LM_PROMPT, LM_BATCH, "prefill")
+        pterms = rl.RooflineTerms(meta_c.flops, meta_c.bytes_accessed, 0.0, 1,
+                                  rl.model_flops_estimate(CONFIG, pshape))
+        record["prefill"] = {
+            "batch": [LM_BATCH, LM_PROMPT], "kernel_calls": card_tr.kernel_calls(),
+            "launches": launches, "card_flops": card_c.flops, "meta_flops": meta_c.flops,
+            "card_bytes": card_c.bytes_accessed, "meta_bytes": meta_c.bytes_accessed,
+            "op_count_diff": {k: list(v) for k, v in diff.items()},
+            "prefill_s": prefill_s, "median_prefill_s": statistics.median(prefill_s),
+            "compute_s": pterms.compute_s, "memory_s": pterms.memory_s,
+            "step_time_s": pterms.step_time_s, "bottleneck": pterms.bottleneck,
+        }
+        print(f"[tooling] prefill {CONFIG.name} {LM_BATCH}x{LM_PROMPT}: kernel ops "
+              f"{card_tr.kernel_calls()}, launches {launches}; flops card {card_c.flops:.0f} "
+              f"meta {meta_c.flops:.0f}; bytes card {card_c.bytes_accessed:.0f} meta "
+              f"{meta_c.bytes_accessed:.0f}; counts differing {diff}; prefill_s {prefill_s} "
+              f"(median {statistics.median(prefill_s):.6f}) against step_time_s "
+              f"{pterms.step_time_s:.6f} (compute_s {pterms.compute_s:.6f}, memory_s "
+              f"{pterms.memory_s:.6f}, {pterms.bottleneck})", flush=True)
+        if card_tr.kernel_calls() != {"flash_attention": CONFIG.num_layers} or \
+                flash != CONFIG.num_layers:
+            problems.append(f"prefill: kernel ops {card_tr.kernel_calls()}, launches "
+                            f"{launches}, expected {CONFIG.num_layers} flash_attention")
+        if card_c.flops != meta_c.flops or \
+                abs(card_c.bytes_accessed - meta_c.bytes_accessed) > \
+                TOOLING_BYTES_RTOL * meta_c.bytes_accessed:
+            problems.append(f"prefill totals: card {card_c.flops}, {card_c.bytes_accessed} vs "
+                            f"meta {meta_c.flops}, {meta_c.bytes_accessed}; {diff}")
+        del card_tr, meta_tr
+
+        # the sharded LM phase's rank 0 step-1 collectives against its dry run
+        scfg = _sharded_lm_config()
+        sb = make_train_step(scfg, VirtualMesh(SHARDED_LM_MESH, axes,
+                                               coord=tuple(sharded_lm["rank0_coord"])),
+                             SHARDED_LM_BATCH, SHARDED_LM_SEQ,
+                             opt_cfg=OptimizerConfig(**SHARDED_LM_OPT), device="meta")
+        sshape = configs.ShapeSpec("sharded_lm", SHARDED_LM_SEQ, SHARDED_LM_BATCH, "train")
+        str_ = trace(sb.fn, *dryrun.lm_args(sb, sshape))
+        want = [[c.kind, c.nbytes, c.axis, c.group] for c in str_.collectives]
+        got = [list(c) for c in sharded_lm["rank0_collectives_step1"]]
+        record["sharded_collectives"] = {"rank0": _by_kind(got), "dry_run": _by_kind(want),
+                                         "in_order_equal": got == want,
+                                         "wire_bytes": analyze(str_).wire_bytes}
+        print(f"[tooling] sharded LM step 1 on {SHARDED_LM_MESH}, rank 0's collectives "
+              f"{_by_kind(got)} against the dry run's {_by_kind(want)} (kind: [count, result "
+              f"bytes]); in order equal {got == want}", flush=True)
+        if got != want:
+            problems.append(f"sharded collectives: rank 0 {_by_kind(got)} vs dry run "
+                            f"{_by_kind(want)}")
+
+        # the production dry runs
+        record["dryruns"] = []
+        for arch, shape_name, out, proc in procs:
+            log, _ = proc.communicate(timeout=TOOLING_DRYRUN_TIMEOUT_S)
+            recs = [json.loads(line) for line in Path(out).read_text().splitlines()] \
+                if Path(out).exists() else []
+            rec = recs[-1] if recs else {"status": "missing", "log": log[-2000:]}
+            if rec.get("status") == "ok":
+                brief = {k: rec[k] for k in ("arch", "shape", "mesh", "status", "device",
+                                             "compile_s", "wall_s", "memory_analysis",
+                                             "collectives", "collective_result_bytes",
+                                             "wire_bytes_per_device", "kernel_calls",
+                                             "hlo_flops_per_device", "hlo_bytes_per_device",
+                                             "flop_counter", "roofline")}
+            else:
+                brief = {"arch": arch, "shape": shape_name, **rec}
+                problems.append(f"dry run {arch} {shape_name}: {rec.get('status')} "
+                                f"{rec.get('error')} {log[-1500:]}")
+            record["dryruns"].append(brief)
+            print(f"[tooling] dry run {json.dumps(brief)}", flush=True)
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
     if problems:
         raise RuntimeError("; ".join(problems))
     return record
@@ -5754,15 +5993,21 @@ def main() -> int:
     print(f"[phase] hybrid and encoder-decoder {time.perf_counter() - t:.1f} s", flush=True)
 
     t = time.perf_counter()
-    print(json.dumps({"lm_train": _lm_train_path(torch)}), flush=True)
+    lm_train = _lm_train_path(torch)
+    print(json.dumps({"lm_train": lm_train}), flush=True)
     print(f"[phase] LM training {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     print(json.dumps({"lm_train_families": _lm_train_families_path(torch)}), flush=True)
     print(f"[phase] LM training, SSM and encoder-decoder families "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
-    print(json.dumps({"sharded_lm": _sharded_lm_phase(torch, card)}), flush=True)
+    sharded_lm = _sharded_lm_phase(torch, card)
+    print(json.dumps({"sharded_lm": sharded_lm}), flush=True)
     print(f"[phase] sharded LM step {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    print(json.dumps({"launch_tooling": _launch_tooling_phase(torch, card, lm_train,
+                                                              sharded_lm)}), flush=True)
+    print(f"[phase] launch tooling {time.perf_counter() - t:.1f} s", flush=True)
     print(f"[phase] total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": results}))
     print(card)

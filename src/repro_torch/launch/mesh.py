@@ -22,17 +22,79 @@ for every collective, by design: gloo documents ``all_gather`` for CPU
 tensors only, and one rule for every op keeps the result independent of
 what a build's gloo accepts.
 
-The reference's TPU constants (peak bf16 FLOP/s, HBM and ICI rates) are
-not copied: they are a TPU's numbers.
+``VirtualMesh`` is the counterpart of the reference's dry run on 512
+virtual host devices (``--xla_force_host_platform_device_count``): one
+rank's view of a mesh of any shape, with no process group, whose
+collectives return results of the right shape (``launch.dryrun`` runs a
+step on it on the ``meta`` device).  Both meshes record each collective
+they perform into the recorders ``record_collectives`` opens.
+
+The reference's constants are a TPU v5e's; the port's are an H100 SXM's
+(NVIDIA H100 Tensor Core GPU datasheet, SXM5 column), for the roofline
+(``launch.roofline``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+import contextlib
+import dataclasses
+import math
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve
+
+# H100 SXM (NVIDIA H100 Tensor Core GPU datasheet)
+PEAK_FLOPS_BF16 = 989e12          # dense bf16 tensor-core FLOP/s
+HBM_BW = 3.35e12                  # HBM3 bytes/s
+NVLINK_BW = 450e9                 # NVLink 4 bytes/s each direction (900 GB/s both)
+INTER_NODE_BW = 50e9              # one 400 Gb/s NDR InfiniBand port a GPU, bytes/s
+GPUS_PER_NODE = 8                 # an HGX H100 8-GPU board
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One collective a rank performed: its kind (``all-reduce`` or
+    ``all-gather``), the bytes of its result, the mesh axis, the number
+    of ranks in its group, and whether the group lies within one node of
+    ``GPUS_PER_NODE`` ranks (ranks row-major over the axes)."""
+
+    kind: str
+    nbytes: int
+    axis: str
+    group: int
+    node_local: bool
+
+
+_RECORDERS: List[List[Collective]] = []
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[List[Collective]]:
+    """A list that every collective either mesh performs in the block is
+    appended to."""
+    log: List[Collective] = []
+    _RECORDERS.append(log)
+    try:
+        yield log
+    finally:
+        _RECORDERS.remove(log)
+
+
+def _record(kind: str, t: torch.Tensor, axis: str, shape: Dict[str, int],
+            coord: Dict[str, int]) -> None:
+    if not _RECORDERS:
+        return
+    names = list(shape)
+    stride = math.prod(shape[a] for a in names[names.index(axis) + 1:])
+    first = sum((0 if a == axis else coord[a]) * math.prod(shape[b] for b in names[i + 1:])
+                for i, a in enumerate(names))
+    last = first + (shape[axis] - 1) * stride
+    c = Collective(kind, t.numel() * t.element_size(), axis, shape[axis],
+                   first // GPUS_PER_NODE == last // GPUS_PER_NODE)
+    for log in _RECORDERS:
+        log.append(c)
 
 
 class Mesh:
@@ -96,6 +158,7 @@ class Mesh:
             dist.all_reduce(buf, group=self.group(a))
             if buf is not out:
                 out.copy_(buf)
+            _record("all-reduce", out, a, self.shape, self._coord)
         return out
 
     def all_gather(self, t: torch.Tensor, axes: Union[str, Tuple[str, ...]],
@@ -111,10 +174,61 @@ class Mesh:
             parts = [torch.empty_like(src) for _ in range(self.shape[a])]
             dist.all_gather(parts, src, group=self.group(a))
             t = torch.cat(parts, dim=dim).to(t.device)
+            _record("all-gather", t, a, self.shape, self._coord)
         return t
 
     def barrier(self) -> None:
         dist.barrier()
+
+
+class VirtualMesh:
+    """One rank's view of a mesh of ``shape`` over ``axes`` with no process
+    group: the interface the steps use (``axis_names``, ``shape``,
+    ``coord``, ``device``, ``all_reduce``, ``all_gather``, ``barrier``).
+    The rank sits at ``coord`` (0 on every axis by default), on ``device``
+    (``meta`` by default).  A collective returns a result of the right
+    shape, the rank's own data standing for every rank's: ``all_reduce`` a
+    clone, ``all_gather`` the pieces concatenated in coordinate order.
+    Each is recorded as ``Mesh`` records it; an axis of size 1 is skipped,
+    as ``Mesh`` skips it."""
+
+    def __init__(self, shape: Tuple[int, ...], axes: Tuple[str, ...],
+                 coord: Optional[Tuple[int, ...]] = None,
+                 device: Union[str, torch.device] = "meta"):
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+        coord = tuple(coord) if coord is not None else (0,) * len(axes)
+        if len(coord) != len(axes) or any(not 0 <= c < n for c, n in zip(coord, shape)):
+            raise ValueError(f"coordinate {coord} is not on the mesh {shape}")
+        self.axis_names = tuple(axes)
+        self.shape: Dict[str, int] = dict(zip(axes, shape))
+        self._coord = dict(zip(axes, coord))
+        self.device = resolve(device, "VirtualMesh")
+
+    def coord(self, axis: str) -> int:
+        return self._coord[axis]
+
+    def __repr__(self) -> str:
+        return f"VirtualMesh({self.shape}, at {self._coord}, {self.device})"
+
+    def all_reduce(self, t: torch.Tensor, axes: Union[str, Tuple[str, ...]]) -> torch.Tensor:
+        out = t.clone()
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            if self.shape[a] > 1:
+                _record("all-reduce", out, a, self.shape, self._coord)
+        return out
+
+    def all_gather(self, t: torch.Tensor, axes: Union[str, Tuple[str, ...]],
+                   dim: int = 0) -> torch.Tensor:
+        for a in reversed((axes,) if isinstance(axes, str) else tuple(axes)):
+            if self.shape[a] == 1:
+                continue
+            t = torch.cat([t.contiguous()] * self.shape[a], dim=dim)
+            _record("all-gather", t, a, self.shape, self._coord)
+        return t
+
+    def barrier(self) -> None:
+        pass
 
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],

@@ -106,11 +106,11 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, S, H, D); k, v: (B, T, KVH, D).  Returns (B, S, H, D)."""
     d = q.shape[3]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no attention for device {q.device}; expected cpu or cuda")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"no attention for device {q.device}; expected cpu, cuda or meta")
     train = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                          or v.requires_grad)
-    if q.device.type == "cuda" and not train:
+    if q.device.type != "cpu" and not train:       # meta: routed as cuda (launch.dryrun)
         return ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                    causal=causal, scale=scale).transpose(1, 2)
     s, h = q.shape[1], q.shape[2]

@@ -139,11 +139,11 @@ def ssd_chunked(
     float32, or float64 for float64 x).  Under autograd the chunked form
     on either device, each chunk checkpointed; else the kernel on a CUDA
     tensor (module docstring)."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no SSD scan for device {x.device}; expected cpu or cuda")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"no SSD scan for device {x.device}; expected cpu, cuda or meta")
     train = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, dt, A, B_, C_, initial_state))
-    if x.device.type == "cuda" and not train:
+    if x.device.type != "cpu" and not train:       # meta: routed as cuda (launch.dryrun)
         return ops.ssd_chunk_forward(x, dt, A, B_, C_, chunk=chunk,
                                      initial_state=initial_state)
     b, s, h, p = x.shape

@@ -19,6 +19,7 @@ from pathlib import Path
 import pytest
 
 pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 from repro import analysis as ref_analysis  # noqa: E402
 from repro_torch import analysis as port_analysis  # noqa: E402

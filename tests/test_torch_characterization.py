@@ -9,6 +9,7 @@ import dataclasses
 import pytest
 
 pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 from repro.core import coordination as jcoord  # noqa: E402
 from repro.core import scheduler as jsched  # noqa: E402

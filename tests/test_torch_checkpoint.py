@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 msgpack = pytest.importorskip("msgpack")
 
 import jax  # noqa: E402

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 from repro_torch.kernels import bucketize as kbucketize  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402

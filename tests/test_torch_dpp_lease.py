@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 from repro.core import dwrf as j_dwrf  # noqa: E402
 from repro.core.datagen import DataGenConfig as JDataGenConfig  # noqa: E402

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 from repro.core import dwrf as jdwrf  # noqa: E402
 from repro.core import transforms as jT  # noqa: E402

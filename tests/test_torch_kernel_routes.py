@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 from repro_torch.kernels import decode as kdecode  # noqa: E402
 from repro_torch.kernels import embedding_bag as kbag  # noqa: E402

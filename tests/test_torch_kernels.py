@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
@@ -229,15 +230,29 @@ def test_ragged_gather_matches_pallas_every_shift():
     np.testing.assert_array_equal(got, want)
 
 
+class _Elsewhere:
+    """A stand-in for a tensor on a device that is neither CPU, CUDA nor
+    ``meta`` (the dispatchers read only its shape and device)."""
+
+    def __init__(self, t):
+        self.shape, self.dtype = t.shape, t.dtype
+        self.device = torch.device("xpu")
+        self.requires_grad = False
+
+
 def test_dispatch_refuses_other_devices():
-    """No silent fallback: a tensor on neither CPU nor CUDA raises, and the
-    CUDA wrappers refuse CPU tensors instead of computing them."""
+    """No silent fallback: a tensor on neither CPU, CUDA nor ``meta``
+    raises, and the CUDA wrappers refuse CPU tensors instead of computing
+    them.  A ``meta`` tensor (only a dry run holds one) gets an empty
+    result of the kernel's shape and dtype."""
     from repro_torch.kernels import decode as kdecode
     from repro_torch.kernels import fused_transform as kft
 
     meta = torch.empty((2, 128), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.xor_decrypt(meta)
+        ops.xor_decrypt(_Elsewhere(meta))
+    out = ops.xor_decrypt(meta)
+    assert (out.device.type, out.shape, out.dtype) == ("meta", meta.shape, meta.dtype)
     cpu = torch.zeros((2, 128), dtype=torch.int32)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         kdecode.xor_decrypt(cpu)
@@ -254,7 +269,9 @@ def test_dispatch_refuses_other_devices():
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         kembag.embedding_bag(table, cpu[:, :3].contiguous(), torch.zeros((2, 3)))
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.embedding_bag(table.to("meta"), meta, meta.float())
+        ops.embedding_bag(_Elsewhere(table), meta, meta.float())
+    out = ops.embedding_bag(table.to("meta"), meta, meta.float())
+    assert (out.device.type, out.shape, out.dtype) == ("meta", (2, 8), torch.float32)
 
 
 def test_launch_counts():

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -479,16 +480,31 @@ def test_cuda_entry_points_raise_without_cuda(monkeypatch):
         serve.main(["--smoke"])
 
 
+class _Elsewhere:
+    """A stand-in for a tensor on a device that is neither CPU, CUDA nor
+    ``meta`` (the dispatchers read only its shape and device)."""
+
+    def __init__(self, t):
+        self.shape, self.dtype = t.shape, t.dtype
+        self.device = torch.device("xpu")
+        self.requires_grad = False
+
+
 def test_flash_wrappers_refuse_cpu_and_other_devices():
     """No silent fallback: the kernel's wrappers take CUDA tensors only,
-    and the dispatcher refuses a device that is neither CPU nor CUDA."""
+    and the dispatcher refuses a device that is neither CPU, CUDA nor
+    ``meta``; on ``meta`` both give an empty result of the kernel's shape."""
     q = torch.zeros((1, 4, 2, 32))
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         kflash.flash_attention(q, q[:, :1], q[:, :1])
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         kflash.flash_attention(q, q, q)
     meta = q.to("meta")
+    other = _Elsewhere(meta)
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.flash_attention(meta, meta, meta)
+        ops.flash_attention(other, other, other)
     with pytest.raises(ValueError, match="no attention for device"):
-        attention.blocked_attention(meta, meta, meta)
+        attention.blocked_attention(other, other, other)
+    assert ops.flash_attention(meta, meta, meta).shape == meta.shape
+    out = attention.blocked_attention(meta, meta, meta)
+    assert (out.device.type, out.shape) == ("meta", meta.shape)

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 from repro.launch.train import lm_synthetic_batches as j_synthetic  # noqa: E402
 from repro.optim import OptimizerConfig as JOptimizerConfig  # noqa: E402

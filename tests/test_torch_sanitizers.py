@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 from repro.analysis import lockdep as ref_ld  # noqa: E402
 from repro.analysis import racedep as ref_rd  # noqa: E402

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 from repro.core import dwrf as j_dwrf  # noqa: E402
 from repro.core.cache import StripeCache as JStripeCache  # noqa: E402

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 import torch_sharded_ranks  # noqa: E402
 from repro_torch.distributed.spawn import spawn  # noqa: E402

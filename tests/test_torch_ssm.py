@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -546,10 +547,20 @@ def test_ssm_entry_points_raise_without_cuda(monkeypatch):
         serve.main(["--arch", ARCH, "--smoke"])
 
 
+class _Elsewhere:
+    """A stand-in for a tensor on a device that is neither CPU, CUDA nor
+    ``meta`` (the dispatchers read only its shape and device)."""
+
+    def __init__(self, t):
+        self.shape, self.dtype = t.shape, t.dtype
+        self.device = torch.device("xpu")
+        self.requires_grad = False
+
+
 def test_ssd_wrapper_refuses_cpu_and_dispatch_other_devices():
     """No silent fallback: the kernel's wrapper takes CUDA tensors only,
     and the dispatcher and the model's scan refuse a device that is
-    neither CPU nor CUDA."""
+    neither CPU, CUDA nor ``meta``; on ``meta`` both give empty results."""
     x = torch.zeros((1, 8, 2, 4))
     dt = torch.zeros((1, 8, 2))
     a = torch.zeros(2)
@@ -557,7 +568,10 @@ def test_ssd_wrapper_refuses_cpu_and_dispatch_other_devices():
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         kssd.ssd_chunk_forward(x, dt, a, bm, bm)
     meta = [t.to("meta") for t in (x, dt, a, bm, bm)]
+    other = [_Elsewhere(t) for t in meta]
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.ssd_chunk_forward(*meta)
+        ops.ssd_chunk_forward(*other)
     with pytest.raises(ValueError, match="no SSD scan for device"):
-        ssm.ssd_chunked(*meta, chunk=4)
+        ssm.ssd_chunked(*other, chunk=4)
+    for y, state in (ops.ssd_chunk_forward(*meta), ssm.ssd_chunked(*meta, chunk=4)):
+        assert (y.device.type, y.shape, state.shape) == ("meta", x.shape, (1, 2, 4, 4))

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -140,9 +141,20 @@ def test_bucketize_keeps_subnormals_where_xla_flushes():
     assert xla[0] != got[0]
 
 
+class _Elsewhere:
+    """A stand-in for a tensor on a device that is neither CPU, CUDA nor
+    ``meta`` (the dispatchers read only its shape and device)."""
+
+    def __init__(self, t):
+        self.shape, self.dtype = t.shape, t.dtype
+        self.device = torch.device("xpu")
+        self.requires_grad = False
+
+
 def test_standalone_wrappers_refuse_cpu_and_other_devices():
     """No silent fallback: the kernels' wrappers take CUDA tensors only,
-    and the dispatcher refuses a device that is neither CPU nor CUDA."""
+    and the dispatcher refuses a device that is neither CPU, CUDA nor
+    ``meta``; on ``meta`` it gives an empty result of the kernel's shape."""
     ids = torch.zeros((2, 4), dtype=torch.int32)
     vals = torch.zeros((2, 4))
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
@@ -150,9 +162,12 @@ def test_standalone_wrappers_refuse_cpu_and_other_devices():
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         kbucketize.bucketize(vals, torch.zeros(3))
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.sigrid_hash(ids.to("meta"), 1, 10)
+        ops.sigrid_hash(_Elsewhere(ids), 1, 10)
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.bucketize(vals.to("meta"), torch.zeros(3, device="meta"))
+        ops.bucketize(_Elsewhere(vals), torch.zeros(3, device="meta"))
+    assert ops.sigrid_hash(ids.to("meta"), 1, 10).shape == ids.shape
+    out = ops.bucketize(vals.to("meta"), torch.zeros(3, device="meta"))
+    assert (out.device.type, out.shape, out.dtype) == ("meta", vals.shape, torch.int32)
 
 
 def test_hash_args_check_is_shared():

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.distributed import sharding as jsh  # noqa: E402

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 import torch_moe_ref as MR  # noqa: E402
 import torch_steps_ranks  # noqa: E402
@@ -179,6 +180,32 @@ def test_train_step_matches_reference(arch, shape, port, ref):
             if key in held:
                 assert a.tobytes() == held[key].tobytes(), k
             held[key] = a
+
+
+@pytest.mark.parametrize("arch", R.ARCHS)
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"mesh{s[0]}x{s[1]}")
+def test_collectives_equal_the_dry_run(arch, shape, port):
+    """Step 1's collectives on each gloo rank (kind, result bytes, axis and
+    group, in order) equal those of the same step dry-run on ``meta`` over
+    a ``VirtualMesh`` at the rank's coordinate."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import trace
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import OptimizerConfig
+
+    cfg = torch_steps_ranks.smoke(arch)
+    for r in port:
+        mesh = VirtualMesh(shape, ("data", "model"), coord=r[shape]["coord"])
+        bundle = make_train_step(cfg, mesh, R.B, R.S, opt_cfg=OptimizerConfig(**R.OPT),
+                                 device="meta")
+        spec = configs.ShapeSpec("steps", R.S, R.B, "train")
+        tr = trace(bundle.fn, *dryrun.lm_args(bundle, spec))
+        want = [(c.kind, c.nbytes, c.axis, c.group) for c in tr.collectives]
+        got = [tuple(c) for c in r[shape][arch]["collectives"]]
+        assert got == want
+        assert {k for k, *_ in got} == {"all-gather", "all-reduce"}
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"mesh{s[0]}x{s[1]}")

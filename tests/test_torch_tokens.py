@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (cores shared among xdist's workers)
 
 from repro.core import tokens as JT  # noqa: E402
 from repro.core.schema import SparseColumn as JSparseColumn  # noqa: E402

@@ -9,7 +9,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.convert import lm_params_from_numpy, moe_shard_from_numpy
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import make_mesh, record_collectives
 from repro_torch.launch.steps import make_decode_step, make_prefill_step, make_train_step
 from repro_torch.models.common import ModelConfig, MoEConfig
 from repro_torch.models.moe import expert_rows, moe_forward_ep
@@ -41,8 +41,12 @@ def _train(arch, mesh, ins, c):
     ptrs = {k: p.data_ptr() for k, p in params.items()}
     out = {"specs": {k: tuple(s) for k, s in bundle.in_specs[0].items()},
            "expert": sorted(bundle.expert), "loss": [], "grad_norm": [], "params": []}
-    for b in ins[arch]["batches"]:
-        params, opt, m = bundle.fn(params, opt, bundle.shard_batch(b))
+    for i, b in enumerate(ins[arch]["batches"]):
+        local = bundle.shard_batch(b)
+        with record_collectives() as log:
+            params, opt, m = bundle.fn(params, opt, local)
+        if i == 0:          # step 1's collectives, (kind, result bytes, axis, group)
+            out["collectives"] = [(c.kind, c.nbytes, c.axis, c.group) for c in log]
         out["loss"].append(float(m["loss"]))
         out["grad_norm"].append(float(m["grad_norm"]))
         out["params"].append(_np(params))
