@@ -67,6 +67,15 @@ The DLRM step is the reference's sharded sparse step:
 * the tables, the accumulator and the MLP parameters are updated in place
   (the reference donates its state), so a full-vocab table is never held
   twice.
+
+Tracing: ``StepBundle.attach_tracer`` installs a span ``Tracer``
+(``NULL_TRACER`` until then; an LM's model gets it too, for its
+attention spans).  ``shard_batch`` is a ``step.handoff`` span and adds
+the bytes it hands to the device to ``metrics.handoff_bytes``; the DLRM
+step's device work lies in three spans, in order: ``dlrm.pool`` (the
+pooling), ``dlrm.dense`` (the MLPs' copy, forward and backward, their
+gradients' all-reduce, AdamW, the lr and the loss's reduction) and
+``dlrm.table_update`` (the all-gathers and the row-wise AdaGrad update).
 """
 from __future__ import annotations
 
@@ -96,6 +105,7 @@ from repro_torch.models import build_model
 from repro_torch.models.common import init_leaf, partition_specs
 from repro_torch.models.dlrm import DLRM, DLRMConfig
 from repro_torch.models.moe import expert_rows
+from repro_torch.obs import NULL_TRACER, counter
 from repro_torch.optim import OptimizerConfig, adamw_init, adamw_update, wsd_schedule
 
 _INPUT_LOGICAL = {
@@ -207,6 +217,22 @@ def bound(model: torch.nn.Module, tensors: Dict[str, torch.Tensor]):
             mod._parameters[leaf] = p
 
 
+def _nbytes(tree: Dict[str, Any]) -> int:
+    """The bytes of the tensors of a (possibly nested) batch."""
+    n = 0
+    for v in tree.values():
+        n += _nbytes(v) if isinstance(v, dict) else v.nbytes
+    return n
+
+
+@dataclasses.dataclass
+class BundleMetrics:
+    """What a ``StepBundle`` has moved: the bytes of this rank's part of
+    every batch ``shard_batch`` handed to the mesh's device."""
+
+    handoff_bytes: int = counter()
+
+
 @dataclasses.dataclass
 class StepBundle:
     """``fn`` on this rank's slices: ``fn(params, opt_state, batch) ->
@@ -214,7 +240,9 @@ class StepBundle:
     for prefill and decode; the PartitionSpecs it holds its arguments by
     (``in_specs``), and the arguments it updates in place
     (``donate_argnums``).  ``expert`` names the leaves of which the rank
-    holds its slice of the experts whole (an expert-parallel MoE)."""
+    holds its slice of the experts whole (an expert-parallel MoE).
+    ``tracer`` records the spans of the hand-off and the step
+    (``attach_tracer``), ``metrics`` the bytes handed off."""
 
     fn: Callable
     in_specs: Tuple[Any, ...]
@@ -223,10 +251,24 @@ class StepBundle:
     opt_cfg: Optional[OptimizerConfig] = None
     donate_argnums: Tuple[int, ...] = ()
     expert: Set[str] = dataclasses.field(default_factory=set)
+    tracer: Any = NULL_TRACER
+    metrics: BundleMetrics = dataclasses.field(default_factory=BundleMetrics)
+
+    def attach_tracer(self, tracer) -> None:
+        """Install a span ``Tracer`` (``NULL_TRACER`` to detach): the
+        hand-off's and the step's spans, and an LM's attention spans."""
+        self.tracer = tracer
+        attach = getattr(self.model, "attach_tracer", None)
+        if attach is not None:
+            attach(tracer)
 
     def shard_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """This rank's part of a global batch, on the mesh's device."""
-        return shard_batch(batch, self.in_specs[-1], self.mesh)
+        """This rank's part of a global batch, on the mesh's device (a
+        ``step.handoff`` span; its bytes go to ``metrics.handoff_bytes``)."""
+        with self.tracer.span("step.handoff"):
+            out = shard_batch(batch, self.in_specs[-1], self.mesh)
+            self.metrics.handoff_bytes += _nbytes(out)
+        return out
 
     def shard_params(self, params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """This rank's slice of each whole leaf (by name), on its device."""
@@ -496,28 +538,33 @@ def make_dlrm_sparse_train_step(
     names = sorted(model.params())
 
     def train_step(params, opt_state, step_batch):
+        tracer = bundle.tracer
         tables = params["tables"]
-        with torch.no_grad():
-            for k, p in model.params().items():
-                p.copy_(params[k])
+        with tracer.span("dlrm.pool"), torch.no_grad():
             pooled = model.pooled_embeddings_sharded(tables, step_batch, mesh)
-        pooled.requires_grad_(True)
-        mlp = model.params()
-        loss = model.loss_from_pooled(pooled, step_batch)
-        *grads, g_pooled = torch.autograd.grad(loss, [*mlp.values(), pooled])
-        with torch.no_grad():
-            g_mlp = {k: mesh.all_reduce(g, axes) / n_split for k, g in zip(mlp, grads)}
-            new_mlp, new_adam, gnorm = adamw_update(
-                {k: p.detach() for k, p in mlp.items()}, g_mlp, opt_state["adam"], opt_cfg)
-            lr = wsd_schedule(opt_cfg, opt_state["adam"]["step"] + 1) * 10.0
-            for k in names:
-                params[k].copy_(new_mlp[k])
+        with tracer.span("dlrm.dense"):
+            with torch.no_grad():
+                for k, p in model.params().items():
+                    p.copy_(params[k])
+            pooled.requires_grad_(True)
+            mlp = model.params()
+            loss = model.loss_from_pooled(pooled, step_batch)
+            *grads, g_pooled = torch.autograd.grad(loss, [*mlp.values(), pooled])
+            with torch.no_grad():
+                g_mlp = {k: mesh.all_reduce(g, axes) / n_split for k, g in zip(mlp, grads)}
+                new_mlp, new_adam, gnorm = adamw_update(
+                    {k: p.detach() for k, p in mlp.items()}, g_mlp, opt_state["adam"],
+                    opt_cfg)
+                lr = wsd_schedule(opt_cfg, opt_state["adam"]["step"] + 1) * 10.0
+                for k in names:
+                    params[k].copy_(new_mlp[k])
+                loss = mesh.all_reduce(loss.detach(), axes) / n_split
+        with tracer.span("dlrm.table_update"), torch.no_grad():
             global_batch = {k: mesh.all_gather(step_batch[k], axes)
                             for k in ("sparse_ids", "sparse_mask")}
             model.sparse_table_update_sharded_(
                 tables, opt_state["acc"], mesh.all_gather(g_pooled / n_split, axes),
                 global_batch, lr, mesh)
-            loss = mesh.all_reduce(loss.detach(), axes) / n_split
         new_opt = {"adam": new_adam, "acc": opt_state["acc"]}
         return params, new_opt, {"loss": loss, "grad_norm": gnorm}
 
@@ -525,5 +572,6 @@ def make_dlrm_sparse_train_step(
     mlp_specs = {k: P() for k in names}
     param_specs = dict(sorted({**mlp_specs, "tables": vocab}.items()))
     opt_specs = {"adam": {"mu": mlp_specs, "nu": mlp_specs, "step": P()}, "acc": vocab}
-    return StepBundle(fn=train_step, in_specs=(param_specs, opt_specs, bspecs), model=model,
-                      mesh=mesh, opt_cfg=opt_cfg, donate_argnums=(0, 1))
+    bundle = StepBundle(fn=train_step, in_specs=(param_specs, opt_specs, bspecs), model=model,
+                        mesh=mesh, opt_cfg=opt_cfg, donate_argnums=(0, 1))
+    return bundle

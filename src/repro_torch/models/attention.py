@@ -22,6 +22,11 @@ launch: ``_dense_attention`` when the chunks do not divide, else
 rounded to the operand dtype before their products and the row sums
 ``delta`` in float32.  GQA's K/V are repeated to every query head before
 it, so autograd sums a group's gradients, as in the reference.
+``_Flash``'s forward is an ``attention.fwd`` span of the ``tracer``
+``blocked_attention`` is given (a remat's recompute records one too) and
+its backward an ``attention.bwd`` span; the tracer rides on autograd's
+``ctx``, since the backward may run on autograd's device thread, which
+sees none of the forward's context.
 
 MLA (DeepSeek-V2's multi-head latent attention) caches the compressed
 ``c_kv`` (B, S, kv_lora) and the shared rope key ``k_rope`` (B, S,
@@ -45,6 +50,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, ParamSpec
 from repro_torch.models.layers import apply_rope, rmsnorm
+from repro_torch.obs import NULL_TRACER
 
 NEG_INF = -2.0e38
 
@@ -102,8 +108,10 @@ def output_projection(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, chunk: int = 1024,
                       k_chunk: Optional[int] = None,
-                      softmax_scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, S, H, D); k, v: (B, T, KVH, D).  Returns (B, S, H, D)."""
+                      softmax_scale: Optional[float] = None,
+                      tracer=NULL_TRACER) -> torch.Tensor:
+    """q: (B, S, H, D); k, v: (B, T, KVH, D).  Returns (B, S, H, D).
+    ``tracer`` records ``_Flash``'s spans on the training route."""
     d = q.shape[3]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     if q.device.type not in ("cpu", "cuda", "meta"):
@@ -124,26 +132,31 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
     if train:
-        return _Flash.apply(q, k, v, causal, cq, ck, scale)
+        return _Flash.apply(q, k, v, causal, cq, ck, scale, tracer)
     return _flash_fwd_impl(q, k, v, causal, cq, ck, scale)[0]
 
 
 class _Flash(torch.autograd.Function):
     """The reference's ``_flash`` custom VJP over (B, S, H, D) q and k, v
-    of as many heads: forward ``_flash_fwd_impl``, backward ``_flash_bwd``."""
+    of as many heads: forward ``_flash_fwd_impl`` (an ``attention.fwd``
+    span), backward ``_flash_bwd`` (``attention.bwd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, cq: int, ck: int, scale: float):
-        out, lse = _flash_fwd_impl(q, k, v, causal, cq, ck, scale)
+    def forward(ctx, q, k, v, causal: bool, cq: int, ck: int, scale: float,
+                tracer=NULL_TRACER):
+        with tracer.span("attention.fwd"):
+            out, lse = _flash_fwd_impl(q, k, v, causal, cq, ck, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.blocks = (causal, cq, ck, scale)
+        ctx.tracer = tracer
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd(*ctx.blocks, q, k, v, out, lse, dout)
-        return dq, dk, dv, None, None, None, None
+        with ctx.tracer.span("attention.bwd"):
+            dq, dk, dv = _flash_bwd(*ctx.blocks, q, k, v, out, lse, dout)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _flash_fwd_impl(q, k, v, causal: bool, cq: int, ck: int,
@@ -301,7 +314,7 @@ def mla_queries(params, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConf
 
 
 def mla_prefill_attention(params, x: torch.Tensor, positions: torch.Tensor,
-                          cfg: ModelConfig, chunk: int):
+                          cfg: ModelConfig, chunk: int, tracer=NULL_TRACER):
     """Full MLA attention by expanding the compressed KV into per-head K/V:
     returns the context (B, S, d) and the cache entries (c_kv, k_rope)."""
     m = cfg.mla
@@ -319,7 +332,7 @@ def mla_prefill_attention(params, x: torch.Tensor, positions: torch.Tensor,
     # attention, then slice back
     v_pad = F.pad(v, (0, qk_dim - m.v_head_dim)) if m.v_head_dim < qk_dim else v
     out = blocked_attention(q, k, v_pad, causal=True, chunk=chunk, k_chunk=4 * chunk,
-                            softmax_scale=1.0 / math.sqrt(qk_dim))
+                            softmax_scale=1.0 / math.sqrt(qk_dim), tracer=tracer)
     ctx = output_projection(out[..., :m.v_head_dim], params.wo)
     return ctx, (c_kv, k_rope)
 

@@ -118,7 +118,7 @@ class EncDecLM(DecoderLM):
         hn = layers.rmsnorm(x, lp.ln1, cfg.rms_eps)
         q, k, v = attn.gqa_project_qkv(lp.attn, hn, positions, cfg)
         o = attn.blocked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk,
-                                   k_chunk=cfg.attn_k_chunk)
+                                   k_chunk=cfg.attn_k_chunk, tracer=self.tracer)
         x = x + attn.output_projection(o, lp.attn.wo)
         return x + layers.mlp(lp.ffn, layers.rmsnorm(x, lp.ln2, cfg.rms_eps))
 
@@ -150,13 +150,13 @@ class EncDecLM(DecoderLM):
         hn = layers.rmsnorm(x, lp.ln1, cfg.rms_eps)
         q, k, v = attn.gqa_project_qkv(lp.self_attn, hn, positions, cfg)
         o = attn.blocked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
-                                   k_chunk=cfg.attn_k_chunk)
+                                   k_chunk=cfg.attn_k_chunk, tracer=self.tracer)
         x = x + attn.output_projection(o, lp.self_attn.wo)
         hn = layers.rmsnorm(x, lp.ln_c, cfg.rms_eps)
         cq = attn._project(hn, lp.cross_attn.wq)
         ck, cv = self._cross_kv(lp, enc_out)
         co = attn.blocked_attention(cq, ck, cv, causal=False, chunk=cfg.attn_chunk,
-                                    k_chunk=cfg.attn_k_chunk)
+                                    k_chunk=cfg.attn_k_chunk, tracer=self.tracer)
         x = x + attn.output_projection(co, lp.cross_attn.wo)
         x = x + layers.mlp(lp.ffn, layers.rmsnorm(x, lp.ln2, cfg.rms_eps))
         return x, {"k": k, "v": v, "cross_k": ck, "cross_v": cv}

@@ -91,7 +91,7 @@ class HybridLM(DecoderLM):
             if self._is_attn(i):
                 q, k, v = attn.gqa_project_qkv(sp.mixer, h, positions, cfg)
                 o = attn.blocked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
-                                           k_chunk=cfg.attn_k_chunk)
+                                           k_chunk=cfg.attn_k_chunk, tracer=self.tracer)
                 mix = attn.output_projection(o, sp.mixer.wo)
             else:
                 mix = ssm_lib.ssm_forward(sp.mixer, h, cfg)

@@ -21,7 +21,9 @@ backbones: the SSM and hybrid models train through this ``loss`` with
 their own ``backbone``, the encoder-decoder through its own ``loss``.
 ``input_specs`` and ``cache_logical_axes`` are the reference's: the
 shape and dtype of each input of a train, prefill or decode step, and
-the logical axes of each cache entry.
+the logical axes of each cache entry.  ``attach_tracer`` installs a span
+``Tracer`` that the training attention records its ``attention.fwd``
+and ``attention.bwd`` spans on (``NULL_TRACER`` until then).
 
 The reference scans one stacked parameter tree over the layers; here each
 stack (``stacks``: ``layers`` here) is an ``nn.ModuleList`` whose
@@ -64,6 +66,7 @@ from repro_torch.models.common import (
     stack_tree,
     stacked,
 )
+from repro_torch.obs import NULL_TRACER
 
 AUX_LOSS_COEF = 0.01
 
@@ -100,6 +103,7 @@ def check_family(cfg: ModelConfig, family: str) -> None:
 
 class DecoderLM(nn.Module):
     family = "dense"                  # the model's key in ``check_family``
+    tracer = NULL_TRACER              # the training attention's spans (``attach_tracer``)
 
     def __init__(self, cfg: ModelConfig, device: Union[str, torch.device] = "cuda"):
         super().__init__()
@@ -261,16 +265,22 @@ class DecoderLM(nn.Module):
 
     # -- training -----------------------------------------------------------
 
+    def attach_tracer(self, tracer) -> None:
+        """Install a span ``Tracer`` (``NULL_TRACER`` to detach) for the
+        training attention's ``attention.fwd`` and ``attention.bwd``."""
+        self.tracer = tracer
+
     def _layer_train(self, lp, x: torch.Tensor, positions: torch.Tensor):
         """One layer's training forward: (x, the layer's MoE aux loss)."""
         cfg = self.cfg
         h = layers.rmsnorm(x, lp.ln1, cfg.rms_eps)
         if cfg.mla:
-            ctx, _ = attn.mla_prefill_attention(lp.attn, h, positions, cfg, cfg.attn_chunk)
+            ctx, _ = attn.mla_prefill_attention(lp.attn, h, positions, cfg, cfg.attn_chunk,
+                                                tracer=self.tracer)
         else:
             q, k, v = attn.gqa_project_qkv(lp.attn, h, positions, cfg)
             o = attn.blocked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
-                                       k_chunk=cfg.attn_k_chunk)
+                                       k_chunk=cfg.attn_k_chunk, tracer=self.tracer)
             ctx = attn.output_projection(o, lp.attn.wo)
         x = x + ctx
         h = layers.rmsnorm(x, lp.ln2, cfg.rms_eps)

@@ -1,10 +1,14 @@
 """Observability layer for the DSI pipeline.
 
-Three stdlib-only pieces, threaded through every DSI stage:
+Three stdlib-only pieces (torch is looked up, never imported), threaded
+through every DSI stage:
 
   * :mod:`repro_torch.obs.trace` — thread-safe span tracing with clock
-    injection and a Chrome-trace/Perfetto exporter.  Disabled by default
-    (``NULL_TRACER``), zero-cost when off.
+    injection and a Chrome-trace/Perfetto exporter; while a torch
+    profiler records, each span is also a profiler annotation.  Disabled
+    by default (``NULL_TRACER``: no clock read, no span object); the cost
+    of a ``Tracer`` on the card is measured by ``python3 -m
+    dsibench.tracer_cost``.
   * :mod:`repro_torch.obs.meta` — per-field counter/gauge metadata for the
     metric dataclasses; one source of truth shared by ``merge`` methods,
     the registry, and the REPRO-M002 monotonicity rule.

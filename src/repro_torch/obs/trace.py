@@ -21,8 +21,17 @@ Three ways to record:
 
 Tracing is **disabled by default**: every traced component takes
 ``tracer=NULL_TRACER``, whose span handle is a shared singleton — no
-allocation, no clock read, no lock (overhead asserted in
-``benchmarks/bench_obs.py``).
+clock read, no lock, no span object and no profiler annotation.  The
+port's cost with a ``Tracer`` attached is measured on the card by
+``python3 -m dsibench.tracer_cost`` (PERF.md).
+
+While a ``torch.profiler`` session is recording, a ``Tracer``'s ``span``
+also enters a ``torch.profiler.record_function`` annotation of the same
+name for the span's lifetime, so the span lies on the profiler's
+timeline beside the kernels launched inside it (the profiler links each
+kernel to the CPU op that launched it, and that op to the annotations
+around it).  Without a recording profiler this costs one check a span.
+``record`` and ``instant`` are timed already and add no annotation.
 
 ``chrome_trace()`` exports the span list as Chrome-trace/Perfetto JSON
 (complete ``"X"`` events, microsecond timestamps normalized to the
@@ -32,6 +41,7 @@ https://ui.perfetto.dev — see docs/observability.md.
 from __future__ import annotations
 
 import json
+import sys
 import threading
 import time
 from pathlib import Path
@@ -66,17 +76,31 @@ class Span:
         return self.t1 - self.t0
 
 
+def _profiler_annotation(name: str):
+    """An entered ``record_function(name)`` while a torch profiler is
+    recording on this thread, else None.  A process that has not imported
+    torch runs no profiler."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return None
+    rf = torch.autograd.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class _SpanHandle:
     """Context manager returned by ``Tracer.span``: opens on ``__enter__``,
-    appends the completed span on ``__exit__``."""
+    appends the completed span on ``__exit__``; while a torch profiler
+    records, the span is also a profiler annotation."""
 
-    __slots__ = ("_tracer", "name", "labels", "t0")
+    __slots__ = ("_tracer", "name", "labels", "t0", "_annotation")
 
     def __init__(self, tracer: "Tracer", name: str, labels: Dict[str, Any]):
         self._tracer = tracer
         self.name = name
         self.labels = labels
         self.t0 = 0.0
+        self._annotation = None
 
     def set(self, **labels: Any) -> "_SpanHandle":
         """Attach labels discovered mid-span (byte counts, row counts)."""
@@ -89,12 +113,16 @@ class _SpanHandle:
         stack.append(self.name)
         with tr._lock:
             tr._open += 1
+        self._annotation = _profiler_annotation(self.name)
         self.t0 = tr._clock()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         tr = self._tracer
         t1 = tr._clock()
+        if self._annotation is not None:
+            self._annotation.__exit__(exc_type, exc, tb)
+            self._annotation = None
         stack = tr._stack()
         stack.pop()
         parent = stack[-1] if stack else None
@@ -243,8 +271,8 @@ _NULL_SPAN = _NullSpan()
 class NullTracer:
     """The disabled-by-default tracer: every operation is a no-op
     returning shared singletons, so instrumented hot paths pay only the
-    call dispatch (asserted ≤ 2% of bench_dpp throughput in
-    ``benchmarks/bench_obs.py``)."""
+    call dispatch: no clock read, no lock, no span object and no
+    profiler annotation."""
 
     __slots__ = ()
 

@@ -178,12 +178,23 @@ class Trainer:
             else None
         )
         self._train_step = self._sparse_step if self._sparse else self._dense_step
+        self.attach_tracer(tracer)
         self.history: list[StepMetrics] = []
         self.metrics = TrainMetrics()
         self.registry = registry or MetricsRegistry()
         self.registry.register("train", lambda: self.metrics)
         if self.store is not None:
             self.registry.register("embed", lambda: self.store.stats)
+
+    def attach_tracer(self, tracer) -> None:
+        """Install a span ``Tracer`` (``NULL_TRACER`` to detach): ``fit``'s
+        spans, and the model's (an LM's attention spans) or, on an LM mesh,
+        the train step's."""
+        self.tracer = tracer
+        target = self._bundle if self._lm_mesh else self.model
+        attach = getattr(target, "attach_tracer", None)
+        if attach is not None:
+            attach(tracer)
 
     # -- step ------------------------------------------------------------
 
@@ -246,6 +257,7 @@ class Trainer:
         them) and this rank's slice of each parameter."""
         self._bundle = make_train_step(self.model_cfg, self.mesh, 1, 1, self.rules,
                                        self.opt_cfg, self.mesh.device)
+        self._bundle.attach_tracer(self.tracer)
         self.model, self._rows = self._bundle.model, 1
         dtypes = {k: p.dtype for k, p in self.model.named_parameters()}
         self._slices = {k: torch.empty(shape, dtype=dtypes[k], device=self.mesh.device)
@@ -258,6 +270,7 @@ class Trainer:
             seq = np.shape(batch["frames" if "frames" in batch else "tokens"])[1]
             self._bundle = make_train_step(self.model_cfg, self.mesh, rows, seq, self.rules,
                                            self.opt_cfg, self.mesh.device)
+            self._bundle.attach_tracer(self.tracer)
             self.model, self._rows = self._bundle.model, rows
         return self._bundle
 
