@@ -113,8 +113,9 @@
    the whole tables (the unsharded path).  The kernels are built in this
    process first; the ranks only load the library.  Checks each of the
    four ranks' counts (set to 0 before its steps, read after): 8
-   ``embedding_bag_warp`` launches and none on the block route, 0 on the
-   one rank; the MLPs bit-identical and the losses equal across the four
+   ``embedding_bag_warp`` and 8 ``rowwise_adagrad`` launches and none on
+   the block route, 8 ``rowwise_adagrad`` and nothing else on the one
+   rank; the MLPs bit-identical and the losses equal across the four
    ranks; the one rank's MLP ReLUs keep exactly the units the four ranks'
    kept (their pre-activations recorded by rank 0), its own
    pre-activations within 1e-4 of their rms of the four ranks' at every
@@ -128,8 +129,17 @@
    percents); a seeded sample of untouched rows unchanged bit for bit.
    Prints steps/s (all 8 and after the first), each rank's peak device
    memory, the all_reduce of a (512, 42, 128) pooled tensor (CUDA
-   events) and a ``{"sharded": ...}`` line.  Then the
-   paper's characterization models (host numpy only): Table 9 and Table
+   events) and a ``{"sharded": ...}`` line.  Then the table-update kernel
+   at the benchmark cell's shape (``_table_update_phase``: 4096 bags of
+   42 tables of 32 slots over the full 2,000,000-row tables, Zipf 1.3 ids,
+   83% pads): ``rowwise_adagrad`` against its plain version on the rows
+   it touches (a compact copy, and float64 beside both), untouched rows
+   unchanged, NaN where the plain version puts it, its device counters,
+   its scratch beside the (N, E) gradient it never makes; adversarial
+   batches (every slot of a table on one row, NaN and inf d(pooled) rows,
+   all pads, the last row); its device time, the sort's, the parent's
+   plain update's and its bound; a ``{"table_update": ...}`` line.  Then
+   the paper's characterization models (host numpy only): Table 9 and Table
    7 from ``core/dpp/simulator.py``, Fig. 1's power split of each
    workload, ``coordination.simulate`` (60 days, seed 3) and the
    scheduler's ``replication_report``, held to the bands of
@@ -416,6 +426,16 @@ SHARDED_NORM_RTOL = 1e-3      # touched rows after step 8, in relative norm
 # slices and 16 experts; 3 steps of 4 rows x 1024 tokens (2 rows a data
 # rank), then a prefill of 4 x 1024 and one decode step under SERVE_RULES;
 # the same on mesh (1, 1), one NCCL rank
+# the table-update kernel at the benchmark cell's shape (dlrm-paper.train.b4096)
+TABLE_UPDATE_BATCH = 4096
+TABLE_UPDATE_LIVE = 0.17      # live slots of a DPP batch of the cell: ~950k of 5.5M
+# kernel against the plain version on the same rows: each changed row
+# within this share of the largest change, each accumulator entry within
+# this rtol -- both sum the same float32 terms in another order (the
+# plain version's index_add_ atomics in the hardware's), up to 131,072 of
+# them into one row here
+TABLE_UPDATE_TOL = 1e-4
+TABLE_UPDATE_SAMPLE = 1 << 16     # untouched rows sampled, unchanged bit for bit
 SHARDED_LM_MESH = (2, 2)
 SHARDED_LM_LAYERS, SHARDED_LM_EXPERTS = 1, 32
 SHARDED_LM_BATCH, SHARDED_LM_SEQ, SHARDED_LM_STEPS = 4, 1024, 3
@@ -476,7 +496,8 @@ PTXAS_KERNELS = ("fused_transform_kernel", "fused_transform_vec_kernel",
                  "embedding_bag_kernel", "embedding_bag_warp_kernel",
                  "dense_unpack_kernel", "dense_unpack_warp_kernel",
                  "ragged_gather_kernel", "ragged_gather_vec_kernel",
-                 "sigrid_hash_kernel")
+                 "sigrid_hash_kernel", "rowwise_adagrad_keys_kernel",
+                 "rowwise_adagrad_rows_kernel", "rowwise_adagrad_carry_kernel")
 
 
 def _setup():
@@ -2221,9 +2242,10 @@ def _sharded_phase(torch, batches, card):
     (42 x 2,000,000 x 128 float32 tables, 43 GB) on mesh (1, 4), four gloo
     ranks on the one card (10.75 GB of tables each), for 8 steps on the
     serving phase's 8 batches; then the same steps on mesh (1, 1), one
-    NCCL rank holding the whole tables (the unsharded path, no kernel).
-    Checks every rank's launches (8 ``embedding_bag_warp``, none of the
-    block route; 0 on the one rank), MLPs bit-identical across the four
+    NCCL rank holding the whole tables (the unsharded path).
+    Checks every rank's launches (8 ``embedding_bag_warp`` and 8
+    ``rowwise_adagrad``, none of the block route; 8 ``rowwise_adagrad``
+    and nothing else on the one rank), MLPs bit-identical across the four
     ranks, the losses, the touched rows and their accumulator entries
     against the one rank's, and a sample of untouched rows unchanged bit
     for bit; returns the phase's record.  The one rank takes the four
@@ -2267,16 +2289,16 @@ def _sharded_phase(torch, batches, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
     for r in four:
-        if r["launches"].get("embedding_bag_warp", 0) != n or r["launches"].get(
-                "embedding_bag", 0) != 0:
+        if r["launches"] != {"embedding_bag_warp": n, "rowwise_adagrad": n}:
             raise RuntimeError(f"rank {r['rank']} launched {r['launches']}: expected "
-                               f"embedding_bag_warp once a step ({n}) and no block route")
+                               f"embedding_bag_warp and rowwise_adagrad once a step ({n}) "
+                               "and no block route")
         if not r["untouched_kept"] or r["untouched_checked"] <= 0:
             raise RuntimeError(f"rank {r['rank']}: untouched rows changed "
                                f"({r['untouched_checked']} checked)")
-    if sum(one["launches"].values()) != 0:
+    if one["launches"] != {"rowwise_adagrad": n}:
         raise RuntimeError(f"the one-rank run launched {one['launches']}: the unsharded "
-                           "path launches no kernel")
+                           f"path launches rowwise_adagrad once a step ({n}) and nothing else")
     # the one rank took the four ranks' ReLU pattern: its own pre-activations
     # must agree with theirs to rounding, so the borrowed pattern differs
     # from its own only where a value lies within rounding of 0
@@ -2370,6 +2392,185 @@ def _sharded_phase(torch, batches, card):
           f"{max(one['pre_activation_gap']):.3e} of their rms of the four ranks', ReLU units "
           f"on the other side of 0 a step {one['relu_flips']}; wall {four_s:.1f} + "
           f"{one_s:.1f} s", flush=True)
+    return record
+
+
+def _update_batch(np, cfg, b, seed):
+    """(ids, mask) of ``b`` bags as a DPP batch of the benchmark cell has
+    them: Zipf (a = 1.3) ids spread over the vocab by a multiplicative
+    hash, each bag's first slots live (``TABLE_UPDATE_LIVE`` of them on
+    average) and the rest pads (id 0, mask 0)."""
+    rng = np.random.default_rng(seed)
+    t, l, v = cfg.num_tables, cfg.max_ids_per_feature, cfg.vocab_per_table
+    ids = ((rng.zipf(1.3, (b, t, l)) % v) * 2654435761 % v).astype(np.int32)
+    n_live = rng.integers(0, int(2 * TABLE_UPDATE_LIVE * l) + 1, (b, t, 1))
+    mask = (np.arange(l)[None, None, :] < n_live).astype(np.float32)
+    ids[mask == 0] = 0
+    return ids, mask
+
+
+def _table_update_phase(torch):
+    """``rowwise_adagrad`` at the benchmark cell's shape: ``dlrm-paper``'s
+    42 tables of 2,000,000 x 128 float32 (43 GB) and a batch of 4096 bags
+    of 32 slots, through ``DLRM.sparse_table_update_`` as the one-rank
+    step calls it.  Each case is held against the plain version
+    (``kernels.ref``) run on a compact copy of the rows it touches, with
+    the keys renumbered, and against float64; a sample of untouched rows
+    must keep its bits, the launch count grow by one, the device counters
+    read the live occurrences and distinct rows, and the call's scratch
+    stay far below the (N, E) per-slot gradient.  Then the kernel's
+    device time (``_queued_ms``), the whole update's (operands too), the
+    stable sort's alone, the parent's plain update (the per-slot
+    expansion and two ``index_add_``) and the bound."""
+    import numpy as np
+
+    from repro_torch.configs.dlrm_paper import CONFIG as cfg
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import rowwise_adagrad as kadagrad
+    from repro_torch.launch import roofline as rl
+    from repro_torch.models.dlrm import DLRM
+
+    dev = torch.device("cuda")
+    t, v, e, l = cfg.num_tables, cfg.vocab_per_table, cfg.embed_dim, cfg.max_ids_per_feature
+    b = TABLE_UPDATE_BATCH
+    model = DLRM(cfg, tables=False, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tables = torch.empty((t, v, e), device=dev).normal_(0.0, 0.02, generator=gen)
+    acc = 1e-3 * torch.rand((t, v), generator=gen, device=dev)
+    flat_t, flat_a = tables.view(-1, e), acc.view(-1)
+    lr = torch.tensor(1e-2, device=dev)          # a 0-d device tensor, as the step's
+
+    def device_batch(ids, mask):
+        return {"sparse_ids": torch.from_numpy(ids).to(dev),
+                "sparse_mask": torch.from_numpy(mask).to(dev)}
+
+    def dpooled_of(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return 1e-2 * torch.randn((b, t, e), generator=g, device=dev)
+
+    def check(label, batch, dpooled):
+        keys, w = model._update_operands(batch, 0, v)
+        grad = dpooled.reshape(-1, e)
+        live = keys[(w != 0) | ~torch.isfinite(grad).all(dim=1)[:, None]]
+        touched = torch.unique(keys)
+        ckeys = torch.searchsorted(touched, keys.reshape(-1)).to(torch.int32).reshape(keys.shape)
+        rows0, acc0 = flat_t[touched].clone(), flat_a[touched].clone()
+        sample = torch.randint(0, t * v, (TABLE_UPDATE_SAMPLE,), generator=gen, device=dev)
+        sample = sample[~torch.isin(sample, touched)]
+        sample_rows, sample_acc = flat_t[sample].clone(), flat_a[sample].clone()
+        plain = ref.rowwise_adagrad_(rows0.clone(), acc0.clone(), ckeys, w, grad, lr)
+        again = ref.rowwise_adagrad_(rows0.clone(), acc0.clone(), ckeys, w, grad, lr)
+        f64 = ref.rowwise_adagrad_(rows0.double(), acc0.double(), ckeys, w.double(),
+                                   grad.double(), lr.double())
+        kadagrad.TALLY.reset()
+        launches = build.LAUNCHES.snapshot().get("rowwise_adagrad", 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model.sparse_table_update_(tables, acc, dpooled, batch, lr)
+        torch.cuda.synchronize()
+        scratch = torch.cuda.max_memory_allocated() - base
+        got = (flat_t[touched], flat_a[touched])
+        if build.LAUNCHES.snapshot().get("rowwise_adagrad", 0) != launches + 1:
+            raise RuntimeError(f"table update {label}: rowwise_adagrad not launched once")
+        for name, a, want in (("rows", got[0], plain[0]), ("acc", got[1], plain[1])):
+            for what in (torch.isnan, torch.isinf):
+                if not torch.equal(what(a), what(want)):
+                    raise RuntimeError(f"table update {label}: {name} {what.__name__[2:]} "
+                                       "where the plain version has none, or none where it has")
+        fin = torch.isfinite(plain[0])
+        scale = float((plain[0] - rows0)[fin].abs().max()) if fin.any() else 0.0
+
+        def rel(a, want):
+            """Finite entries: rows by the largest change, accumulator
+            entries each by its own size."""
+            ft, fa = torch.isfinite(want[0]), torch.isfinite(want[1])
+            dt = float((a[0] - want[0])[ft].abs().max()) if ft.any() else 0.0
+            da = ((a[1] - want[1]).abs() / want[1].abs().clamp_min(1e-30))[fa]
+            return (dt / scale if scale else dt, float(da.max()) if fa.any() else 0.0)
+
+        err, err_plain = rel(got, plain), rel(again, plain)
+        err64 = rel((got[0].double(), got[1].double()), f64)
+        err64_plain = rel((plain[0].double(), plain[1].double()), f64)
+        # held to float64: as close as the plain version is, give or take
+        # the summation order (both add a row's occurrences to it one at a
+        # time, the kernel in slot order, the plain version's atomics in the
+        # hardware's)
+        if any(k > p_ + TABLE_UPDATE_TOL for k, p_ in zip(err64, err64_plain)):
+            raise RuntimeError(f"table update {label}: {err64} from float64 (rows by the "
+                               f"largest change, accumulator entries each), the plain version "
+                               f"{err64_plain} (tolerance {TABLE_UPDATE_TOL:g} beyond it)")
+        if not (torch.equal(flat_t[sample], sample_rows)
+                and torch.equal(flat_a[sample], sample_acc)):
+            raise RuntimeError(f"table update {label}: an untouched row or accumulator moved")
+        counts = kadagrad.TALLY.snapshot()[str(tables.device)]
+        want_counts = {"occurrences": live.numel(), "rows": int(torch.unique(live).numel())}
+        if counts != want_counts:
+            raise RuntimeError(f"table update {label}: counters {counts}, expected {want_counts}")
+        rec = {"slots": keys.numel(), **counts, "scratch_bytes": scratch,
+               "slot_gradient_bytes": keys.numel() * e * 4,
+               "rel_err_vs_plain": err, "plain_rel_err_vs_itself": err_plain,
+               "rel_err_vs_float64": err64, "plain_rel_err_vs_float64": err64_plain,
+               "nan_rows": int(torch.isnan(got[0]).any(dim=1).sum())}
+        if scratch > rec["slot_gradient_bytes"] / 4:
+            raise RuntimeError(f"table update {label}: {scratch} bytes of scratch")
+        print(f"[table_update] {label}: {rec}", flush=True)
+        return rec
+
+    record = {}
+    ids, mask = _update_batch(np, cfg, b, 21)
+    batch, dpooled = device_batch(ids, mask), dpooled_of(22)
+    record["main"] = check("main", batch, dpooled)
+
+    # adversarial batches
+    one = ids.copy(), mask.copy()
+    one[0][:, 5], one[1][:, 5] = 123, 1.0              # every slot of table 5: one run of 4096 chunks
+    record["one_row"] = check("one_row", device_batch(*one), dpooled_of(23))
+    bad = dpooled_of(24)
+    bad[7, 3, 5] = float("nan")
+    bad[9, 4, 0] = float("inf")
+    record["nan_inf"] = check("nan_inf", batch, bad)
+    if record["nan_inf"]["nan_rows"] == 0:
+        raise RuntimeError("table update nan_inf: no row took the NaN")
+    pads = np.zeros_like(ids), np.zeros_like(mask)
+    record["all_pads"] = check("all_pads", device_batch(*pads), dpooled_of(25))
+    if record["all_pads"]["occurrences"] != 0:
+        raise RuntimeError("table update all_pads: the kernel read a pad")
+    last = ids.copy(), mask.copy()
+    last[0][:64, t - 1, :2], last[1][:64, t - 1, :2] = (v - 1, v + 9), 1.0
+    record["last_row"] = check("last_row", device_batch(*last), dpooled_of(26))
+    # device times at the main batch, last, in place (the rows drift; the work does not)
+    keys, w = model._update_operands(batch, 0, v)
+    grad = dpooled.reshape(-1, e)
+    marked = torch.where(w != 0, keys, torch.iinfo(torch.int32).max).reshape(-1)
+
+    def parent_update():
+        """The parent's one-rank update: per-slot gradients, two index_add_."""
+        wb = w.reshape(b, t, l)
+        rg = (dpooled[:, :, None, :] * wb[..., None]).reshape(-1, e)
+        flat = keys.reshape(-1).long()
+        flat_a.index_add_(0, flat, torch.mean(torch.square(rg), dim=-1))
+        scale = lr / torch.sqrt(flat_a[flat] + 1e-8)
+        flat_t.index_add_(0, flat, -scale[:, None] * rg)
+
+    times = {
+        "kernel_ms": _queued_ms(torch, lambda: ops.rowwise_adagrad_(flat_t, flat_a, keys, w,
+                                                                   grad, lr)),
+        "update_ms": _queued_ms(torch, lambda: model.sparse_table_update_(tables, acc, dpooled,
+                                                                         batch, lr)),
+        "sort_ms": _queued_ms(torch, lambda: torch.sort(marked, stable=True)),
+        "parent_plain_ms": _queued_ms(torch, parent_update, iters=5),
+        "plain_call_ms": _call_ms(torch, lambda: ref.rowwise_adagrad_(flat_t, flat_a, keys, w,
+                                                                      grad, lr), iters=3),
+    }
+    bound_ms, side, flops, nbytes = rl.kernel_bound("rowwise_adagrad_", flat_t, flat_a, keys, w,
+                                                    grad, lr)
+    times.update(bound_ms=bound_ms, bound_by=side, bound_flops=flops, bound_bytes=nbytes)
+    record["times"] = times
+    print(f"[table_update] times at the cell's shape: {times}", flush=True)
+
+    del tables, acc, flat_t, flat_a
+    _free(torch)
     return record
 
 
@@ -5932,6 +6133,9 @@ def main() -> int:
     t = time.perf_counter()
     print(json.dumps({"sharded": _sharded_phase(torch, batches, card)}), flush=True)
     print(f"[phase] sharded DLRM step {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    print(json.dumps({"table_update": _table_update_phase(torch)}), flush=True)
+    print(f"[phase] table-update kernel {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
     print(json.dumps({"characterization": _characterization()}), flush=True)
     print(f"[phase] characterization models (host only) {time.perf_counter() - t:.1f} s",

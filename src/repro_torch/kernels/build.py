@@ -77,6 +77,10 @@ SIGNATURES = {
     ),
     "sigrid_hash_launch": (_P, _P, _I64, _U32, _U64, _U32, _P),
     "bucketize_launch": (_P, _P, _P, _I64, _I32, _P),
+    "rowwise_adagrad_keys_launch": (_P, _P, _P, _P, _I64, _I32, _I32, _I64, _P),
+    "rowwise_adagrad_rows_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _F32, _P, _P, _P, _P, _I64, _I32, _I32, _P,
+    ),
 }
 
 _lock = threading.Lock()

@@ -4,11 +4,12 @@ A CPU tensor runs the plain PyTorch version (``repro_torch.kernels.ref``);
 a CUDA tensor launches the hand-written kernel (``kernels.decode``,
 ``kernels.fused_transform``, ``kernels.embedding_bag``,
 ``kernels.flash_attention``, ``kernels.ssd_chunk``, ``kernels.sigrid_hash``,
-``kernels.bucketize``), which raises on anything it cannot take.  There
-is no fallback from a CUDA tensor to the plain version.  A ``meta``
-tensor, which only a caller that asks for it holds (``launch.dryrun``),
-gets an empty result of the kernel's shape and dtype: nothing runs.  Any
-other device raises.
+``kernels.bucketize``, ``kernels.rowwise_adagrad``), which raises on
+anything it cannot take.  There is no fallback from a CUDA tensor to the
+plain version.  A ``meta`` tensor, which only a caller that asks for it
+holds (``launch.dryrun``), gets an empty result of the kernel's shape and
+dtype (the in-place ``rowwise_adagrad_`` its operands back): nothing
+runs.  Any other device raises.
 
 Each op reports its call to the op-trace analyzer while one traces
 (``launch.hlo_analysis.trace``), which counts the kernel's work once
@@ -28,6 +29,7 @@ from repro_torch.kernels import embedding_bag as _embag
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_transform as _ft
 from repro_torch.kernels import ref
+from repro_torch.kernels import rowwise_adagrad as _adagrad
 from repro_torch.kernels import sigrid_hash as _sigrid
 from repro_torch.kernels import ssd_chunk as _ssd
 
@@ -117,6 +119,25 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor, *,
     if _meta(table):
         return torch.empty((ids.shape[0], table.shape[1]), dtype=torch.float32, device="meta")
     return _embag.embedding_bag(table, ids, mask, mode=mode)
+
+
+@_kernel_op
+def rowwise_adagrad_(table: torch.Tensor, acc: torch.Tensor, keys: torch.Tensor,
+                     weights: torch.Tensor, grad: torch.Tensor, lr, eps: float = 1e-8
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise AdaGrad in place on table (R, E) and acc (R,): occurrence
+    (m, l) names row ``keys[m, l]`` (none where it is negative) with
+    gradient ``weights[m, l] * grad[m]``; each row's accumulator entry
+    adds every occurrence's mean squared gradient, then the row moves by
+    -lr/sqrt(acc+eps) times the sum of its gradients.  The plain
+    scatter-adds on a CPU tensor; on a CUDA tensor one sorted,
+    deduplicated pass with no float atomics and no host synchronisation
+    (int32 keys, ``lr`` a float or a 0-d tensor).  Returns (table, acc)."""
+    if _on_cpu(table):
+        return ref.rowwise_adagrad_(table, acc, keys, weights, grad, lr, eps)
+    if _meta(table):
+        return table, acc
+    return _adagrad.rowwise_adagrad_(table, acc, keys, weights, grad, lr, eps)
 
 
 @_kernel_op

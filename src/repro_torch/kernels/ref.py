@@ -5,7 +5,8 @@ on any device.  The wrappers in ``repro_torch.kernels.ops`` run these on
 CPU tensors; ``chip_smoke.py`` holds every kernel against them on the card.
 They mirror ``repro.kernels.ref`` of the reference package bit for bit,
 except ``flash_attention`` and ``ssd_scan``, whose reference oracles and
-kernels agree only within a stated tolerance.
+kernels agree only within a stated tolerance, and ``rowwise_adagrad_``,
+the reference model's table update, which no TPU kernel computes.
 
 Integer hazards of torch (2.x) that shape the code:
 
@@ -240,6 +241,28 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
     if mode == "mean":
         out = out / torch.maximum(denom, torch.ones_like(denom))
     return out
+
+
+@torch.no_grad()
+def rowwise_adagrad_(table: torch.Tensor, acc: torch.Tensor, keys: torch.Tensor,
+                     weights: torch.Tensor, grad: torch.Tensor, lr, eps: float = 1e-8):
+    """Row-wise AdaGrad in place on (R, E) rows and their (R,)
+    accumulator, in the reference's form (``repro.models.dlrm``'s
+    ``sparse_table_update``, whose scatter-adds have no TPU kernel): the
+    occurrence (m, l) names row ``keys[m, l]`` (none where it is
+    negative) with gradient ``weights[m, l] * grad[m]``; every
+    occurrence's mean squared gradient is added to its accumulator entry
+    first (duplicates included), then each occurrence moves its row by
+    -lr/sqrt(acc+eps) times its gradient.  keys and weights (M, L), grad
+    (M, E).  Returns (table, acc)."""
+    l = keys.shape[1]
+    keep = (keys.reshape(-1) >= 0).nonzero().squeeze(1)
+    rows = keys.reshape(-1)[keep].long()
+    rg = grad[keep // l] * weights.reshape(-1)[keep][:, None]
+    acc.index_add_(0, rows, torch.mean(torch.square(rg), dim=-1))
+    scale = lr / torch.sqrt(acc[rows] + eps)
+    table.index_add_(0, rows, (-scale[:, None] * rg).to(table.dtype))
+    return table, acc
 
 
 MASK_VALUE = -2.0e38          # masked scores: the TPU kernel's NEG_INF, not -inf

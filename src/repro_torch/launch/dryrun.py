@@ -26,7 +26,8 @@ total over the same run, a cross-check of the dot count; and
 
 One cell runs on the CPU instead: ``dlrm-paper`` ``train_4k``, whose
 sparse update sizes its occurrences with ``nonzero``
-(``models/dlrm.py``), which ``meta`` cannot size.  It runs on CPU tensors
+(``kernels/ref.py``'s ``rowwise_adagrad_``, the CPU form), which ``meta``
+cannot size.  It runs on CPU tensors
 at full size (one rank's 125,000-row slice of each of the 42 tables),
 with every id in the rank's rows and every mask slot set: the most work
 a rank's step can do.  Its record says so (``device``, ``note``).

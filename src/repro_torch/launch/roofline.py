@@ -17,7 +17,7 @@ where a group's ranks lie within one node of ``GPUS_PER_NODE``, the
 inter-node port's otherwise; the constants are an H100 SXM's
 (``launch.mesh``), not a TPU's.
 
-``kernel_work`` is the one count of the work of each of the nine
+``kernel_work`` is the one count of the work of each of the ten
 kernels (``kernels/ops.py``): the operations and bytes its bound is
 reckoned from (``kernel_bound``), and what the analyzer counts for a
 kernel call on any device.
@@ -290,6 +290,24 @@ def _work_ssd_chunk_forward(x, dt, a, b_, c_, *, chunk: int = 256, initial_state
     return flops, nbytes
 
 
+def _work_rowwise_adagrad_(table, acc, keys, weights, grad, lr, eps: float = 1e-8):
+    # bytes: keys, weights and the gradient rows read once, each distinct
+    # row the live occurrences name and its accumulator entry read and
+    # written once; operations: 4 an element of each live occurrence
+    # (product, sum, square, sum of squares) and 2 an element of each row.
+    # On ``meta``, where keys have no values, every slot is live and its
+    # own row (at most the table's rows): the most a call can do
+    e = table.shape[1]
+    if keys.device.type == "meta":
+        live, rows = keys.numel(), min(keys.numel(), table.shape[0])
+    else:
+        named = keys[(keys >= 0) & (weights != 0)]
+        live, rows = named.numel(), int(torch.unique(named).numel())
+    nbytes = _nbytes(keys, weights, grad) + 2 * rows * (e * table.element_size()
+                                                      + acc.element_size())
+    return 4 * e * live + 2 * e * rows, nbytes
+
+
 def _work_sigrid_hash(ids, salt, max_value):
     return 12 * ids.numel(), 8 * ids.numel()
 
@@ -308,6 +326,7 @@ _WORK = {
     "ssd_chunk_forward": _work_ssd_chunk_forward,
     "sigrid_hash": _work_sigrid_hash,
     "bucketize": _work_bucketize,
+    "rowwise_adagrad_": _work_rowwise_adagrad_,
 }
 
 # the peak each kernel's operations are held to: the tensor cores' bf16

@@ -32,6 +32,13 @@ semantics, with the rank's slice as the argument in place of the whole
 table.  When n does not divide V the unsharded forms run on whole tables,
 as in the reference.  On a CUDA tensor the rank's partial is one launch
 of the ``embedding_bag`` kernel (sum mode) over its (T V/n, E) rows.
+
+Both table updates, of whole tables and of a rank's slice, hand
+``ops.rowwise_adagrad_`` the same operands: each slot's row key in the
+flat (T rows, E) table (-1 for another rank's row), its weight and its
+bag's d(pooled) row.  On a CPU tensor that is the reference's
+scatter-adds; on a CUDA tensor one launch of the ``rowwise_adagrad``
+kernel, which never makes the per-slot (N, E) gradient.
 """
 from __future__ import annotations
 
@@ -132,18 +139,6 @@ class _BagSum(torch.autograd.Function):
         grad = torch.zeros((ctx.rows, e), dtype=g.dtype, device=g.device)
         grad.index_add_(0, ids.reshape(-1).long(), (g[:, None, :] * w[..., None]).reshape(-1, e))
         return grad, None, None
-
-
-@torch.no_grad()
-def _rowwise_adagrad_(tables_flat: torch.Tensor, acc_flat: torch.Tensor, flat: torch.Tensor,
-                      rg: torch.Tensor, lr, eps: float) -> None:
-    """Row-wise AdaGrad in place on (R, E) rows and their (R,)
-    accumulator: every occurrence's mean squared gradient is added first
-    (duplicates included), then each occurrence moves its row by
-    -lr/sqrt(acc+eps) times its gradient."""
-    acc_flat.index_add_(0, flat, torch.mean(torch.square(rg), dim=-1))
-    scale = lr / torch.sqrt(acc_flat[flat] + eps)
-    tables_flat.index_add_(0, flat, (-scale[:, None] * rg).to(tables_flat.dtype))
 
 
 def bce_with_logits(logit: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
@@ -300,20 +295,38 @@ class DLRM(nn.Module):
         lr: Union[float, torch.Tensor],
         eps: float = 1e-8,
     ) -> None:
-        """Row-wise AdaGrad on the touched rows only, in place: d(pooled)
-        expands to per-row gradients, the accumulator adds each row's mean
-        squared gradient, and each occurrence moves its row by
-        -lr/sqrt(acc+eps) times its gradient."""
+        """Row-wise AdaGrad on the touched rows only, in place: each slot's
+        gradient is its bag's d(pooled) times its weight, the accumulator
+        adds each row's mean squared gradient, and each occurrence moves
+        its row by -lr/sqrt(acc+eps) times its gradient
+        (``ops.rowwise_adagrad_``: the plain scatter-adds on the CPU, one
+        sorted, fused kernel on the card)."""
         c = self.cfg
-        ids = batch["sparse_ids"].long().clamp(0, c.vocab_per_table - 1)
+        keys, w = self._update_operands(batch, 0, c.vocab_per_table)
+        ops.rowwise_adagrad_(tables.view(-1, c.embed_dim), acc.view(-1), keys, w,
+                             dpooled.reshape(-1, c.embed_dim), lr, eps)
+
+    def _update_operands(self, batch: Dict[str, torch.Tensor], lo: int, rows: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(keys, weights), each (B T, L), of an update of rows [lo, lo +
+        rows) of every table held as one flat (T rows, E) table: a slot's
+        key is its clipped id's int32 row there (-1 where the id lies
+        outside them); its weight is mask / max(sum(mask), 1) over its
+        whole bag."""
+        c = self.cfg
+        ids = batch["sparse_ids"].clamp(0, c.vocab_per_table - 1).to(torch.int32)
+        b, t, l = ids.shape
+        if t * rows >= 2 ** 31:
+            raise ValueError(f"{t} x {rows} rows exceed the update's int32 keys")
+        offs = torch.arange(t, device=ids.device, dtype=torch.int32)[None, :, None] * rows
+        if rows == c.vocab_per_table:
+            keys = ids + offs
+        else:
+            local = ids - lo
+            keys = torch.where((local >= 0) & (local < rows), local + offs, -1)
         mask = batch["sparse_mask"]
         denom = torch.maximum(mask.sum(dim=2), torch.ones((), device=mask.device))
-        w = mask / denom[..., None]                              # (B, T, L)
-        rg = (dpooled[:, :, None, :] * w[..., None]).reshape(-1, c.embed_dim)
-        t = ids.shape[1]
-        offs = torch.arange(t, device=ids.device)[None, :, None] * c.vocab_per_table
-        flat = (ids + offs).reshape(-1)
-        _rowwise_adagrad_(tables.view(-1, c.embed_dim), acc.view(-1), flat, rg, lr, eps)
+        return keys.reshape(b * t, l), (mask / denom[..., None]).reshape(b * t, l)
 
     def sparse_table_update(self, tables, acc, dpooled, batch, lr, eps: float = 1e-8
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -332,14 +345,19 @@ class DLRM(nn.Module):
         """[lo, hi): the rows of every table this rank holds on ``mesh``."""
         return vocab_rows(self.cfg.vocab_per_table, mesh)
 
-    def _local_ids(self, tables: torch.Tensor, batch, mesh):
-        """ids clipped to [0, V-1], then (this rank's row of each id, the
-        in-range mask); checks that ``tables`` is the rank's slice."""
-        c = self.cfg
+    def _rank_rows(self, tables: torch.Tensor, mesh) -> Tuple[int, int]:
+        """``vocab_rows(mesh)``, checking that ``tables`` is the rank's slice."""
         lo, hi = self.vocab_rows(mesh)
         if tables.shape[1] != hi - lo:
             raise ValueError(f"tables {tuple(tables.shape)} are not this rank's "
                              f"{hi - lo}-row slice on {mesh}")
+        return lo, hi
+
+    def _local_ids(self, tables: torch.Tensor, batch, mesh):
+        """ids clipped to [0, V-1], then (this rank's row of each id, the
+        in-range mask); checks that ``tables`` is the rank's slice."""
+        c = self.cfg
+        lo, hi = self._rank_rows(tables, mesh)
         ids = batch["sparse_ids"].long().clamp(0, c.vocab_per_table - 1)
         local = ids - lo
         return local, (local >= 0) & (local < hi - lo)
@@ -376,17 +394,10 @@ class DLRM(nn.Module):
             self.sparse_table_update_(tables, acc, dpooled, batch, lr, eps)
             return
         c = self.cfg
-        local, sel = self._local_ids(tables, batch, mesh)
-        mask = batch["sparse_mask"]
-        b, t, l = local.shape
-        v_loc = tables.shape[1]
-        denom = torch.maximum(mask.sum(dim=2), torch.ones((), device=mask.device))
-        w = (mask / denom[..., None]).reshape(-1)
-        keep = sel.reshape(-1).nonzero().squeeze(1)             # occurrences (b, t, l)
-        bt = keep // l
-        flat = (local.reshape(-1)[keep] + (bt % t) * v_loc)
-        rg = dpooled.reshape(b * t, c.embed_dim)[bt] * w[keep][:, None]
-        _rowwise_adagrad_(tables.view(-1, c.embed_dim), acc.view(-1), flat, rg, lr, eps)
+        lo, hi = self._rank_rows(tables, mesh)
+        keys, w = self._update_operands(batch, lo, hi - lo)
+        ops.rowwise_adagrad_(tables.view(-1, c.embed_dim), acc.view(-1), keys, w,
+                             dpooled.reshape(-1, c.embed_dim), lr, eps)
 
     def sparse_table_update_sharded(self, tables, acc, dpooled, batch, lr, mesh,
                                     eps: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:

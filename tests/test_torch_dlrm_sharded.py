@@ -140,19 +140,23 @@ def _same_on_all(results, get):
     return first
 
 
-@pytest.mark.parametrize("tag", ["ops", "odd"])
+@pytest.mark.parametrize("tag", ["ops", "odd", "edge"])
 def test_pooled_embeddings_sharded(port, ref, tag):
     """vocab 1600 shards 4 or 2 ways; 1602 on a model axis of 4 falls back
-    to the unsharded form, as in the reference."""
+    to the unsharded form, as in the reference; "edge" is
+    ``torch_sharded_ref.edge_inputs``' batch (pads, a row named 10,000
+    times, an all-pad bag, the last row)."""
     shape, results, _ = port
     got = _same_on_all(results, lambda r: r[tag]["pooled"])
     np.testing.assert_allclose(got, ref[f"{tag}/{shape}/pooled"], **FWD)
 
 
-@pytest.mark.parametrize("tag", ["ops", "odd"])
+@pytest.mark.parametrize("tag", ["ops", "odd", "edge"])
 def test_sparse_table_update_sharded(port, ref, ins, tag):
+    """"edge" adds a d(pooled) row holding a NaN, whose pads reach row 0
+    of table 4 on the first shard only, and lr as a 0-d tensor."""
     shape, results, _ = port
-    v = R.VOCAB if tag == "ops" else R.VOCAB_ODD
+    v = R.VOCAB_ODD if tag == "odd" else R.VOCAB
     n = shape[1] if v % shape[1] == 0 else 1
     for r in results:
         assert r[tag]["lo"] == (r["coord"][1] * v // n if n > 1 else 0)

@@ -409,3 +409,39 @@ def test_embedding_bag_clamps_ids_and_checks_mode():
                ops.embedding_bag(_t(table), _t(fixed), _t(mask), mode="sum").numpy())
     with pytest.raises(ValueError, match="mode"):
         ops.embedding_bag(_t(table), _t(ids), _t(mask), mode="max")
+
+
+def test_rowwise_adagrad_plain_route_against_a_loop():
+    """``ops.rowwise_adagrad_`` on CPU tensors (the plain route; the
+    reference updates its tables with XLA scatters, no kernel) against a
+    float64 loop over the occurrences: negative keys skipped, duplicates
+    each counted, every accumulator entry complete before any row moves.
+    The op returns its operands, updated in place; on ``meta`` it returns
+    them untouched."""
+    rng = np.random.default_rng(11)
+    m, l, e, rows, lr, eps = 6, 5, 8, 10, 0.1, 1e-8
+    keys = rng.integers(-2, rows, (m, l)).astype(np.int32)
+    keys[0] = 3                                   # one row named by a whole bag
+    w = rng.random((m, l)).astype(np.float32)
+    w[1, :2] = 0.0
+    grad = rng.normal(0, 1, (m, e)).astype(np.float32)
+    table = rng.normal(0, 1, (rows, e)).astype(np.float32)
+    acc = rng.random(rows).astype(np.float32)
+    occ = [(k, float(w[i, j]) * grad[i].astype(np.float64))
+           for (i, j), k in np.ndenumerate(keys) if k >= 0]
+    want_a, want_t = acc.astype(np.float64), table.astype(np.float64)
+    for k, g in occ:
+        want_a[k] += np.mean(g * g)
+    for k, g in occ:
+        want_t[k] -= lr / np.sqrt(want_a[k] + eps) * g
+    t, a = _t(table.copy()), _t(acc.copy())
+    out = ops.rowwise_adagrad_(t, a, _t(keys), _t(w), _t(grad), lr, eps)
+    assert out[0] is t and out[1] is a
+    np.testing.assert_allclose(a.numpy(), want_a, rtol=1e-6)
+    np.testing.assert_allclose(t.numpy(), want_t, rtol=1e-5, atol=1e-6)
+    assert not np.array_equal(t.numpy()[3], table[3])
+    untouched = sorted(set(range(rows)) - set(keys[keys >= 0].tolist()))
+    np.testing.assert_array_equal(t.numpy()[untouched], table[untouched])
+    meta = [x.to("meta") for x in (_t(table), _t(acc), _t(keys), _t(w), _t(grad))]
+    got = ops.rowwise_adagrad_(*meta, lr, eps)
+    assert got[0] is meta[0] and got[1] is meta[1]

@@ -306,6 +306,9 @@ def _kernel_cases():
         ("ssd_chunk_forward", (x, dt, -torch.rand(2, generator=g), bc, bc), {"chunk": 4}),
         ("sigrid_hash", (ids, 1, 100), {}),
         ("bucketize", (torch.randn((4, 8), generator=g), borders[0].contiguous()), {}),
+        ("rowwise_adagrad_", (table, torch.rand(20, generator=g), bag_ids,
+                              torch.rand((5, 3), generator=g) + 0.5,
+                              torch.randn((5, 8), generator=g), 0.1), {}),
     ]
 
 

@@ -44,15 +44,16 @@ def run_rank(rank, shape, next_shape, ins, consts, dense0, sparse0, ckpt_dir):
     mesh = make_mesh(shape, AXES, device="cpu")
     out = {"coord": (mesh.coord("data"), mesh.coord("model"))}
 
-    for tag, v in (("ops", consts["vocab"]), ("odd", consts["vocab_odd"])):
+    for tag, v in (("ops", consts["vocab"]), ("odd", consts["vocab_odd"]),
+                   ("edge", consts["vocab"])):
         model = DLRM(dataclasses.replace(smoke, vocab_per_table=v), tables=False,
                      device="cpu")
         x = {k: torch.from_numpy(a) for k, a in ins[tag].items()}
         lo, hi = model.vocab_rows(mesh)
         tables = x["tables"][:, lo:hi].contiguous()
         acc = x["acc"][:, lo:hi].contiguous()
-        tb, ac = model.sparse_table_update_sharded(tables, acc, x["dpooled"], x,
-                                                   consts["lr"], mesh)
+        lr = torch.tensor(consts["lr"]) if tag == "edge" else consts["lr"]   # 0-d too
+        tb, ac = model.sparse_table_update_sharded(tables, acc, x["dpooled"], x, lr, mesh)
         out[tag] = {"lo": lo, "pooled": _np(model.pooled_embeddings_sharded(tables, x, mesh)),
                     "tables": _np(tb), "acc": _np(ac),
                     "kept": bool(torch.equal(tables, x["tables"][:, lo:hi])

@@ -47,6 +47,47 @@ def hard_batch(cfg, n, seed):
     }
 
 
+EDGE_BATCH = 1280
+EDGE_CASES = ("pads", "hot_row", "empty_bag", "last_row", "nan_bag", "all")
+HOT_ROW_TIMES = 10_000
+
+
+def edge_inputs(cfg, case, seed=3):
+    """A table update's inputs at ``cfg``'s widths, ``EDGE_BATCH`` bags of
+    fractional weights, with one of ``EDGE_CASES`` ("all": every one):
+    pads (id 0, mask 0) in ~83% of the slots; one row of table 3 named by
+    ``HOT_ROW_TIMES`` slots; an all-pad bag; the last row of the last
+    table (an id past it clips there); a bag whose d(pooled) holds a NaN,
+    with pads and one live slot."""
+    rng = np.random.default_rng(seed)
+    v, t, l, e = cfg.vocab_per_table, cfg.num_tables, cfg.max_ids_per_feature, cfg.embed_dim
+    n = EDGE_BATCH
+    ids = rng.integers(0, v, (n, t, l)).astype(np.int32)
+    mask = (0.25 + rng.random((n, t, l))).astype(np.float32)
+    dpooled = rng.normal(0, 1, (n, t, e)).astype(np.float32)
+
+    def on(c):
+        return case in (c, "all")
+
+    if on("pads"):
+        pad = rng.random((n, t, l)) < 0.83
+        ids[pad], mask[pad] = 0, 0.0
+    if on("hot_row"):
+        k = HOT_ROW_TIMES // l
+        ids[:k, 3], mask[:k, 3] = v // 2 + 3, 1.0
+    if on("empty_bag"):
+        ids[n - 5, 2], mask[n - 5, 2] = 0, 0.0
+    if on("last_row"):
+        ids[n - 4, t - 1, :3], mask[n - 4, t - 1, :3] = (v - 1, v - 1, v + 5), 1.0
+    if on("nan_bag"):
+        ids[n - 3, 4], mask[n - 3, 4] = 0, 0.0
+        ids[n - 3, 4, 0], mask[n - 3, 4, 0] = 11, 1.0
+        dpooled[n - 3, 4, 2] = np.nan
+    return {"tables": rng.normal(0, 0.5, (t, v, e)).astype(np.float32),
+            "acc": (0.1 * rng.random((t, v))).astype(np.float32),
+            "dpooled": dpooled, "sparse_ids": ids, "sparse_mask": mask}
+
+
 def _mlp(dims, rng):
     out = {}
     for i, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
@@ -58,7 +99,7 @@ def _mlp(dims, rng):
 def inputs(cfg):
     """Every input, for ``cfg`` (``dlrm-smoke``): the ops' tables,
     accumulator, d(pooled) and batch at vocab 1600 ("ops") and 1602
-    ("odd"), initial parameters ("params0", the reference's tree) and
+    ("odd"), ``edge_inputs``' every case at 1600 ("edge"), initial parameters ("params0", the reference's tree) and
     six training batches ("batches")."""
     rng = np.random.default_rng(1)
     out = {}
@@ -70,6 +111,7 @@ def inputs(cfg):
                     "dpooled": rng.normal(0, 1, (BATCH, t, e)).astype(np.float32),
                     **hard_batch(c, BATCH, seed=2)}
     c = dataclasses.replace(cfg, vocab_per_table=VOCAB)
+    out["edge"] = edge_inputs(c, "all")
     n_pairs = (c.num_tables + 1) * c.num_tables // 2
     out["params0"] = {
         "tables": rng.normal(0, 0.05, (c.num_tables, VOCAB, c.embed_dim)).astype(np.float32),
@@ -109,7 +151,7 @@ def main(path):
     opt_cfg = OptimizerConfig(**OPT)
     ins = inputs(smoke)
     out = {}
-    for tag, v in (("ops", VOCAB), ("odd", VOCAB_ODD)):
+    for tag, v in (("ops", VOCAB), ("odd", VOCAB_ODD), ("edge", VOCAB)):
         m = build_model(dataclasses.replace(smoke, vocab_per_table=v))
         x = {k: jnp.asarray(a) for k, a in ins[tag].items()}
         for shape in MESHES:
